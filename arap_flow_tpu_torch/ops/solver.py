@@ -1,0 +1,228 @@
+"""Annealed Gauss-Newton + Jacobi-PCG ARAP solver (ops/solver.py of the JAX
+package).
+
+The schedule is the reference's: the constraint image anneals from source to
+target over ``num_anneal`` steps (α = (i+1)/num_anneal), each step runs
+``gn_iters`` Gauss-Newton linearisations, and each linearisation runs up to
+``max_pcg_iters`` Jacobi-PCG iterations.
+
+Backends for the linear solve:
+
+- ``"cuda"``: the fixed-count PCG kernel (``ops.pcg.pcg_fixed``), one call
+  per GN step running every iteration on the device. On CPU tensors the same
+  wrapper runs its plain torch version.
+- ``"plain"``: ``pcg_solve`` in torch, with the optional ζ and rz early
+  exits.
+- ``"auto"``: ``"cuda"`` when the operands are CUDA tensors and both
+  tolerances are 0, else ``"plain"``. So the parity schedule always runs the
+  kernel on a GPU, and a schedule with a tolerance (``--schedule fast``)
+  runs the early-exit plain PCG, as the JAX package runs XLA there.
+
+All functions take a leading batch dimension or none (see ops/energy.py).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .energy import (
+    ArapOperands,
+    anneal_constraints,
+    apply_jtj,
+    init_state,
+    jtf_and_diag,
+    trig,
+)
+
+BACKENDS = ("auto", "plain", "cuda")
+
+
+class SolverConfig(NamedTuple):
+    """Solver schedule; field names and defaults of the JAX ``SolverConfig``.
+
+    pcg_iters is the PCG budget (≤ max_pcg_iters); q_tolerance enables the ζ
+    early exit, rz_tolerance the relative preconditioned-residual exit
+    (0 = off). Anneal steps i < anneal_split run pcg_iters_early iterations
+    when that is > 0.
+    """
+
+    num_anneal: int = 19
+    gn_iters: int = 8
+    max_pcg_iters: int = 400
+    pcg_iters: float = 400.0
+    q_tolerance: float = 0.0
+    rz_tolerance: float = 0.0
+    pcg_iters_early: float = 0.0
+    anneal_split: float = 0.0
+    backend: str = "auto"  # "auto" | "plain" | "cuda"
+
+    def resolve(self, device) -> "SolverConfig":
+        """Resolve backend='auto' for operands on `device`."""
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}; one of {BACKENDS}")
+        if self.backend != "auto":
+            return self
+        on_cuda = torch.device(device).type == "cuda"
+        no_tols = float(self.q_tolerance) == 0.0 and float(self.rz_tolerance) == 0.0
+        return self._replace(backend="cuda" if on_cuda and no_tols else "plain")
+
+
+def resolve_for(ops: ArapOperands, cfg: SolverConfig) -> SolverConfig:
+    """resolve() for the operands' device, plus dtype routing: float64
+    operands run the plain backend (the kernel is float32 only)."""
+    cfg = cfg.resolve(ops.mask.device)
+    if ops.mask.dtype != torch.float32 and cfg.backend != "plain":
+        cfg = cfg._replace(backend="plain")
+    return cfg
+
+
+def guarded_invert(diag: torch.Tensor) -> torch.Tensor:
+    """CERES-style guarded Jacobi inverse 1/(1+√d)² (1 where d = 0)."""
+    return 1.0 / torch.square(1.0 + torch.sqrt(diag))
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-problem dot product over the (3, H, W) state."""
+    return torch.sum(a * b, dim=(-3, -2, -1))
+
+
+def _bc(t: torch.Tensor) -> torch.Tensor:
+    """A batch-shaped scalar broadcast against (..., 3, H, W) state."""
+    return t[..., None, None, None]
+
+
+def pcg_solve(ops: ArapOperands, s, c, jtf, diag, max_iters: int,
+              pcg_iters=None, q_tolerance: float = 0.0,
+              rz_tolerance: float = 0.0):
+    """Solve JtJ δ = −JtF with Jacobi-preconditioned CG.
+
+    Returns (δ (..., 3, H, W), iterations run per problem). With a tolerance
+    each problem stops on its own (its state freezes, as under ``vmap`` of
+    the JAX while loop); that check reads one flag per iteration back to the
+    host. Without tolerances the loop runs the budget with no host reads.
+    """
+    b = -jtf
+    pre = guarded_invert(diag)
+    r = b
+    z = pre * r
+    p = z
+    rz = _dot(r, z)
+    rz0 = rz
+    delta = torch.zeros_like(jtf)
+    budget = float(np.minimum(
+        np.float32(max_iters),
+        np.float32(pcg_iters if pcg_iters is not None else max_iters)))
+    q_tol = torch.tensor(q_tolerance, dtype=rz.dtype, device=rz.device)
+    rz_tol = torch.tensor(rz_tolerance, dtype=rz.dtype, device=rz.device)
+    use_tols = float(q_tolerance) > 0.0 or float(rz_tolerance) > 0.0
+    active = torch.ones_like(rz, dtype=torch.bool)
+    iters = torch.zeros_like(rz)
+    q_prev = torch.zeros_like(rz)
+    i = 0
+    while i < budget:
+        if use_tols and not bool(active.any()):
+            break
+        ap = apply_jtj(p, ops, s, c)
+        pap = _dot(p, ap)
+        alpha = _bc(torch.where(pap > 0.0, rz / pap, 0.0))
+        delta_n = delta + alpha * p
+        r_n = r - alpha * ap
+        z = pre * r_n
+        rz_new = _dot(z, r_n)
+        beta = _bc(torch.where(rz > 0.0, rz_new / rz, 0.0))
+        p_n = z + beta * p
+        if use_tols:
+            # Q-based ζ test and the relative rz test, per problem
+            q = 0.5 * _dot(delta_n, r_n + b)
+            zeta = float(np.float32(i + 1.0)) * (q - q_prev) / torch.where(
+                q == 0.0, 1.0, q)
+            conv = ((q_tol > 0.0) & (zeta < q_tol)) | (
+                (rz_tol > 0.0) & (rz_new < rz_tol * rz_tol * rz0))
+            a3 = _bc(active)
+            delta = torch.where(a3, delta_n, delta)
+            r = torch.where(a3, r_n, r)
+            p = torch.where(a3, p_n, p)
+            rz = torch.where(active, rz_new, rz)
+            q_prev = torch.where(active, q, q_prev)
+            iters = iters + active.to(iters.dtype)
+            active = active & ~conv
+        else:
+            delta, r, p, rz = delta_n, r_n, p_n, rz_new
+            iters = iters + 1.0
+        i += 1
+    return delta, iters
+
+
+def _batched(ops: ArapOperands) -> ArapOperands:
+    return ArapOperands(**{k: v[None] for k, v in vars(ops).items()})
+
+
+def gn_step(x, ops: ArapOperands, cimg, cfg: SolverConfig, pcg_iters: float,
+            q_tol: float, rz_tol: float):
+    """One Gauss-Newton iteration: linearise at x, PCG-solve, update.
+    `cfg` must be resolved. Returns (x', PCG iterations per problem)."""
+    s, c = trig(x)
+    jtf, diag = jtf_and_diag(x, ops, cimg)
+    if cfg.backend == "cuda":
+        from .pcg import pcg_fixed
+
+        budget = int(np.minimum(np.float32(cfg.max_pcg_iters),
+                                np.float32(pcg_iters)))
+        bops = ops if x.dim() == 4 else _batched(ops)
+        b = -jtf if x.dim() == 4 else -jtf[None]
+        pre = guarded_invert(diag).reshape(b.shape)
+        delta = pcg_fixed(
+            b, pre, s.reshape(b.shape[0], *s.shape[-2:]),
+            c.reshape(b.shape[0], *c.shape[-2:]), bops.vmasks, bops.fitmask,
+            bops.wf2, bops.wr2, budget,
+        ).reshape(x.shape)
+        iters = torch.full(x.shape[:-3], float(budget), dtype=x.dtype,
+                           device=x.device)
+    elif cfg.backend == "plain":
+        delta, iters = pcg_solve(ops, s, c, jtf, diag, cfg.max_pcg_iters,
+                                 pcg_iters, q_tol, rz_tol)
+    else:
+        raise ValueError(f"gn_step needs a resolved backend, got {cfg.backend!r}")
+    return x + delta, iters
+
+
+def anneal_solve_stats(ops: ArapOperands, cfg: SolverConfig):
+    """Full annealed solve. Returns (x (..., 3, H, W), total PCG iterations
+    per problem)."""
+    cfg = resolve_for(ops, cfg)
+    x = init_state(ops)
+    tot = torch.zeros(x.shape[:-3], dtype=x.dtype, device=x.device)
+    for i in range(cfg.num_anneal):
+        alpha = np.float32(i + 1.0) / np.float32(cfg.num_anneal)
+        cimg = anneal_constraints(ops, alpha)
+        early = float(cfg.pcg_iters_early) > 0.0 and float(i) < float(cfg.anneal_split)
+        pcg_iters = cfg.pcg_iters_early if early else cfg.pcg_iters
+        for _ in range(cfg.gn_iters):
+            x, it = gn_step(x, ops, cimg, cfg, pcg_iters, cfg.q_tolerance,
+                            cfg.rz_tolerance)
+            tot = tot + it
+    return x, tot
+
+
+def anneal_solve(ops: ArapOperands, cfg: SolverConfig) -> torch.Tensor:
+    return anneal_solve_stats(ops, cfg)[0]
+
+
+def flow_from_state(x: torch.Tensor, ops: ArapOperands) -> torch.Tensor:
+    """Dense flow (..., 2, H, W) = warped position − grid."""
+    return x[..., :2, :, :] - ops.grid
+
+
+def solve(ops: ArapOperands, cfg: SolverConfig):
+    """Full solve; returns (state (..., 3, H, W), flow (..., 2, H, W))."""
+    x = anneal_solve(ops, cfg)
+    return x, flow_from_state(x, ops)
+
+
+def solve_stats(ops: ArapOperands, cfg: SolverConfig):
+    """Like solve() but also returns the PCG iterations run per problem."""
+    x, iters = anneal_solve_stats(ops, cfg)
+    return x, flow_from_state(x, ops), iters

@@ -1,0 +1,72 @@
+"""Unified typed configuration (utils/config.py of the JAX package).
+
+Env vars (``ARAP_*``, applied over the keyword overrides; env wins):
+- ARAP_SCHEDULE       parity | fast           (solver schedule preset)
+- ARAP_BACKEND        auto | plain | cuda     (PCG backend)
+- ARAP_RASTER         device | host           (rasterizer; host is not ported)
+- ARAP_MATCHER        native | binary | file  (correspondence source)
+- ARAP_W_FIT / ARAP_W_REG                      (energy weights)
+
+ARAP_TALL_KERNEL, a layout probe of the TPU kernels, is accepted and
+ignored: on a GPU the layout is only an index choice.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+import torch
+
+from ..ops.energy import ArapWeights
+from ..ops.solver import BACKENDS, SolverConfig
+
+
+@dataclass
+class FrameworkConfig:
+    solver: SolverConfig = field(default_factory=SolverConfig)
+    weights: ArapWeights = field(default_factory=ArapWeights)
+    raster: str = "device"  # device | host
+    matcher: str = "native"  # native | binary | file
+
+    @classmethod
+    def from_env(cls, **overrides) -> "FrameworkConfig":
+        """Construct from keyword overrides, then apply ARAP_* env overrides."""
+        cfg = cls(**overrides)
+        sched = os.environ.get("ARAP_SCHEDULE")
+        if sched == "fast":
+            cfg.solver = cfg.solver._replace(pcg_iters_early=150.0,
+                                             anneal_split=12.0)
+        elif sched == "parity":
+            cfg.solver = cfg.solver._replace(
+                pcg_iters_early=0.0, anneal_split=0.0, q_tolerance=0.0,
+                rz_tolerance=0.0,
+            )
+        backend = os.environ.get("ARAP_BACKEND")
+        if backend in BACKENDS:
+            cfg.solver = cfg.solver._replace(backend=backend)
+        raster = os.environ.get("ARAP_RASTER")
+        if raster in ("device", "host"):
+            cfg.raster = raster
+        matcher = os.environ.get("ARAP_MATCHER")
+        if matcher in ("native", "binary", "file"):
+            cfg.matcher = matcher
+        wf = os.environ.get("ARAP_W_FIT")
+        wr = os.environ.get("ARAP_W_REG")
+        if wf or wr:
+            cfg.weights = ArapWeights(
+                w_fit=float(wf) if wf else cfg.weights.w_fit,
+                w_reg=float(wr) if wr else cfg.weights.w_reg,
+            )
+        return cfg
+
+
+def cli_device(name: str) -> torch.device:
+    """The device a CLI was asked for; raises when it is a CUDA device and
+    CUDA is not available (no silent move to the CPU)."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            f"--device {name}: CUDA is not available here; pass --device cpu "
+            "to run the plain torch path on the CPU")
+    return dev

@@ -1,0 +1,305 @@
+"""The port's deform slice as a whole agrees with the JAX package's: the
+batched canvas solve/raster (plain and transposed), ArapDeformer in simple,
+crop and keep_state modes, BatchRunner, and the deform / warp CLIs, all at a
+short schedule (2 anneal × 2 GN × 40 PCG).
+
+Tolerances: flows within 0.05 px (the full-solve bound of
+tests/test_pallas_pcg.py:59; both solvers run float32 with different
+summation orders); i16 flows are compared after dequantisation, whose
+1/64 px quantum is inside that bound. Warped masks may disagree on at most
+0.5 % of pixels: a flow difference of a few 1e-3 px can flip a coverage test
+on a triangle edge. Warped colours are not compared for equality for the
+same reason (a truncation to uint8 moves with the barycentric weights).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from arap_flow_tpu.io import flo as JF
+from arap_flow_tpu.io.constraints import add_border_pins
+from arap_flow_tpu.io.image import save_image
+from arap_flow_tpu.models import arap as JA
+from arap_flow_tpu.ops import energy as JE
+from arap_flow_tpu.ops.solver import SolverConfig as JConfig
+from arap_flow_tpu.pipeline import batch as JB
+from arap_flow_tpu.pipeline import deform_tool as JD
+from arap_flow_tpu.pipeline import warp_tool as JW
+from arap_flow_tpu.utils.config import FrameworkConfig as JFramework
+from arap_flow_tpu_torch import __main__ as TMain
+from arap_flow_tpu_torch.io import flo as TF
+from arap_flow_tpu_torch.io.image import load_mask, load_rgb
+from arap_flow_tpu_torch.models import arap as TA
+from arap_flow_tpu_torch.ops import energy as TE
+from arap_flow_tpu_torch.ops.solver import SolverConfig as TConfig
+from arap_flow_tpu_torch.pipeline import batch as TB
+from arap_flow_tpu_torch.pipeline import deform_tool as TD
+from arap_flow_tpu_torch.pipeline import warp_tool as TW
+from arap_flow_tpu_torch.utils.config import FrameworkConfig, cli_device
+from arap_flow_tpu_torch.utils.profiling import StageTimer
+
+torch.set_num_threads(1)
+
+SHORT = dict(num_anneal=2, gn_iters=2, max_pcg_iters=40, pcg_iters=40.0)
+FLOW_TOL = 0.05
+MASK_TOL = 0.005
+BUCKETS = ((32, 32), (32, 48), (48, 32), (48, 48), (48, 64), (64, 64),
+           (64, 96))
+
+
+def _frame(H=56, W=72, seed=0, box=(18, 38, 20, 44), disp=(2, 3)):
+    rng = np.random.default_rng(seed)
+    mask = np.full((H, W), 255, np.uint8)
+    y0, y1, x0, x1 = box
+    mask[y0:y1, x0:x1] = 0
+    rgb = rng.integers(0, 255, (H, W, 3)).astype(np.uint8)
+    ys, xs = np.mgrid[y0 + 2 : y1 - 1 : 4, x0 + 2 : x1 - 1 : 4]
+    cons = np.stack([xs.ravel(), ys.ravel(), xs.ravel() + disp[1],
+                     ys.ravel() + disp[0]], 1).astype(np.int32)
+    cons[::3, 2] += 1  # a little non-rigid
+    return rgb, mask, cons
+
+
+def _assert_products_close(t, j):
+    """Flow within FLOW_TOL px; warped mask disagreement within MASK_TOL."""
+    assert t.flow.shape == j.flow.shape and t.flow.dtype == np.float32
+    assert np.abs(t.flow - j.flow).max() < FLOW_TOL
+    assert t.warped_rgb.dtype == np.uint8 and t.warped_rgb.shape == j.warped_rgb.shape
+    assert (t.warped_mask != j.warped_mask).mean() <= MASK_TOL
+    assert (j.warped_mask > 0).sum() > 100
+
+
+def _canvas_inputs(transposed: bool):
+    """Two problems on a (48, 64) canvas: (solve ops, rgb, offs)."""
+    items, rgbs = [], []
+    for k, box in enumerate(((6, 26, 8, 40), (8, 28, 4, 38))):
+        rgb, mask, cons = _frame(32, 44, seed=k, box=box, disp=(1 + k, -2))
+        if transposed:
+            mask, cons = np.ascontiguousarray(mask.T), cons[:, [1, 0, 3, 2]]
+        items.append(JE.build_compact(mask, add_border_pins(
+            cons, mask.shape[1], mask.shape[0])))
+        rgbs.append(np.ascontiguousarray(rgb.transpose(2, 0, 1)))
+    offs = np.asarray([[4, 6], [16, 20]], np.int32)
+    return items, np.stack(rgbs), offs
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_solve_and_raster_canvas_matches_jax(transposed):
+    items, rgb, offs = _canvas_inputs(transposed)
+    jops = JE.CompactOperands(*(np.stack(ls) for ls in zip(*items)))
+    jf, jr, jm = JA.solve_and_raster_canvas(
+        jops, rgb, offs, JConfig(**SHORT), canvas_hw=(48, 64),
+        transposed=transposed)
+    tops = TE.CompactOperands.stack(
+        [TE.CompactOperands(*it) for it in items]).to("cpu")
+    tf, tr, tm = TA.solve_and_raster_canvas(
+        tops, torch.as_tensor(rgb), offs, TConfig(**SHORT), canvas_hw=(48, 64),
+        transposed=transposed)
+    assert tf.dtype == torch.int16 and tuple(tf.shape) == np.asarray(jf).shape
+    assert tr.dtype == torch.uint8 and tuple(tr.shape) == (2, 3, 48, 64)
+    dflow = np.abs(tf.numpy().astype(np.float32) - np.asarray(jf)) / 64.0
+    assert dflow.max() < FLOW_TOL
+    jm = np.asarray(jm)
+    assert (tm.numpy() != jm).mean() <= MASK_TOL
+    assert (jm > 0).sum() > 400
+
+
+def test_solve_and_raster_batch_matches_jax():
+    frames = [_frame(seed=s) for s in (3, 4)]
+    items = [JE.build_compact(m, add_border_pins(c, 72, 56))
+             for _, m, c in frames]
+    rgb = np.stack([np.ascontiguousarray(r.transpose(2, 0, 1))
+                    for r, _, _ in frames])
+    jops = JE.CompactOperands(*(np.stack(ls) for ls in zip(*items)))
+    _, jf, _, jm = JA.solve_and_raster_batch(jops, rgb, JConfig(**SHORT),
+                                             compact_flow=True)
+    tops = TE.CompactOperands.stack(
+        [TE.CompactOperands(*it) for it in items]).to("cpu")
+    x, tf, _, tm = TA.solve_and_raster_batch(tops, torch.as_tensor(rgb),
+                                             TConfig(**SHORT), compact_flow=True)
+    assert tuple(x.shape) == (2, 3, 56, 72)
+    assert np.abs(tf.numpy() / 64.0 - np.asarray(jf) / 64.0).max() < FLOW_TOL
+    assert (tm.numpy() != np.asarray(jm)).mean() <= MASK_TOL
+
+
+@pytest.mark.parametrize("mode", ["simple", "crop", "keep_state"])
+def test_deformer_matches_jax(mode):
+    rgb, mask, cons = _frame(seed=5)
+    kw = dict(crop=mode == "crop", keep_state=mode == "keep_state",
+              crop_buckets=BUCKETS)
+    j = JA.ArapDeformer(JConfig(**SHORT), **kw).deform(rgb, mask, cons)
+    t = TA.ArapDeformer(TConfig(**SHORT), device="cpu", **kw).deform(
+        rgb, mask, cons)
+    _assert_products_close(t, j)
+    if mode == "keep_state":
+        assert np.abs(t.state - j.state).max() < FLOW_TOL
+    else:
+        assert t.state is None
+
+
+def test_deformer_crop_solves_transposed_and_falls_back():
+    """A wide object takes a transposed bucket; an object no bucket fits
+    solves full-frame. Both agree with the JAX deformer."""
+    wide = _frame(64, 96, seed=6, box=(24, 34, 8, 62), disp=(1, 2))
+    big = _frame(seed=7, box=(2, 54, 2, 70), disp=(1, 1))
+    buckets = ((64, 32), (48, 96), (96, 32))
+    rgb, mask, cons = wide
+    task = TB.make_task(0, 0, rgb, mask, cons, TE.ArapWeights(),
+                        buckets=buckets)
+    assert task is not None and task.transposed
+    assert TB.make_task(0, 0, *big, TE.ArapWeights(), buckets=buckets) is None
+    for fr in (wide, big):
+        j = JA.ArapDeformer(JConfig(**SHORT), crop=True,
+                            crop_buckets=buckets).deform(*fr)
+        t = TA.ArapDeformer(TConfig(**SHORT), crop=True, crop_buckets=buckets,
+                            device="cpu").deform(*fr)
+        _assert_products_close(t, j)
+
+
+def test_deformer_solve_flow_and_options():
+    rgb, mask, cons = _frame(seed=8)
+    j = JA.ArapDeformer(JConfig(**SHORT)).solve_flow(mask, cons)
+    t = TA.ArapDeformer(TConfig(**SHORT), device="cpu").solve_flow(mask, cons)
+    assert np.abs(t - j).max() < FLOW_TOL
+    with pytest.raises(ValueError):
+        TA.ArapDeformer(keep_state=True, crop=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        TA.ArapDeformer(raster="host", device="cpu")
+    r = TA.deform(rgb, mask, cons, TConfig(**SHORT), device="cpu")
+    assert r.flow.shape == (56, 72, 2)
+
+
+def test_batch_runner_matches_jax():
+    """Two tasks of one bucket (one chunk of 2), one of another, and a
+    full-frame fallback, through both runners."""
+    probs = [
+        _frame(seed=9, box=(10, 30, 10, 40)),
+        _frame(seed=10, box=(20, 40, 24, 54), disp=(-2, 1)),
+        _frame(seed=11, box=(8, 40, 6, 64), disp=(1, -1)),
+        _frame(seed=12, box=(2, 54, 2, 70)),
+    ]
+    timer = StageTimer()
+    jr = JB.BatchRunner(JConfig(**SHORT))
+    tr = TB.BatchRunner(TConfig(**SHORT), device="cpu", timer=timer)
+    keys = set()
+    for i, (rgb, mask, cons) in enumerate(probs):
+        jt = JB.make_task(i, 0, rgb, mask, cons, JE.ArapWeights(),
+                          buckets=BUCKETS)
+        tt = TB.make_task(i, 0, rgb, mask, cons, TE.ArapWeights(),
+                          buckets=BUCKETS)
+        assert (jt is None) == (tt is None)
+        if tt is None:
+            jr.add_fallback(i, 0, rgb, mask, cons)
+            tr.add_fallback(i, 0, rgb, mask, cons)
+        else:
+            keys.add((tt.bucket, tt.canvas, tt.transposed))
+            jr.add(jt)
+            tr.add(tt)
+    assert len(keys) == 2  # the first two tasks share a chunk
+    jout, tout = jr.finish(), tr.finish()
+    assert sorted(tout) == sorted(jout) == [(i, 0) for i in range(4)]
+    for k in jout:
+        _assert_products_close(tout[k], jout[k])
+    assert {"upload+stack", "D2H fetch", "host paste"} <= set(timer.totals)
+    assert "D2H fetch" in timer.report()
+
+
+def _write_tree(root, n=2, H=40, W=56):
+    """n frames of one size: rgb/mask PNGs + constraint files, and a list
+    file naming their outputs."""
+    lines = []
+    for i in range(n):
+        rgb, mask, cons = _frame(H, W, seed=20 + i, box=(10, 30, 12, 44),
+                                 disp=(1 + i, 2))
+        paths = {k: root / f"{k}{i}.{ext}" for k, ext in (
+            ("rgb", "png"), ("mask", "png"), ("cstr", "txt"))}
+        save_image(paths["rgb"], rgb)
+        save_image(paths["mask"], mask)
+        with open(paths["cstr"], "w") as f:
+            f.write(f"{len(cons)}\n" + "\n".join(
+                " ".join(str(v) for v in row) for row in cons))
+        lines.append([str(paths["rgb"]), str(paths["mask"]), str(paths["cstr"])])
+    return lines
+
+
+def _run_both_cli(tmp_path, monkeypatch, frames, as_list: bool):
+    monkeypatch.setattr(JD, "make_config", lambda s: JConfig(**SHORT))
+    monkeypatch.setattr(TD, "make_config", lambda s: TConfig(**SHORT))
+    outs = {}
+    for tag, mod, extra in (("j", JD, []), ("t", TD, ["--device", "cpu"])):
+        rows = [r + [str(tmp_path / f"{tag}{i}.{e}") for e in (
+            "flo", "w.png", "m.png")] for i, r in enumerate(frames)]
+        if as_list:
+            lst = tmp_path / f"{tag}.txt"
+            lst.write_text("\n".join(" ".join(r) for r in rows) + "\n")
+            mod.main([str(lst), *extra])
+        else:
+            mod.main([*rows[0], *extra])
+        outs[tag] = rows
+    return outs
+
+
+@pytest.mark.parametrize("as_list", [False, True])
+def test_deform_tool_cli_matches_jax(tmp_path, monkeypatch, as_list):
+    frames = _write_tree(tmp_path, n=2 if as_list else 1)
+    outs = _run_both_cli(tmp_path, monkeypatch, frames, as_list)
+    for jrow, trow in zip(outs["j"], outs["t"]):
+        ju, jv = JF.flow_read(jrow[3])
+        tu, tv = TF.flow_read(trow[3])
+        assert max(np.abs(tu - ju).max(), np.abs(tv - jv).max()) < FLOW_TOL
+        jm, tm = load_mask(jrow[5]), load_mask(trow[5])
+        assert (jm != tm).mean() <= MASK_TOL and (jm > 0).sum() > 100
+        assert load_rgb(trow[4]).shape == load_rgb(jrow[4]).shape
+
+
+def test_warp_tool_cli_matches_jax(tmp_path):
+    rgb, mask, _ = _frame(seed=30)
+    save_image(tmp_path / "i.png", rgb)
+    save_image(tmp_path / "m.png", mask)
+    yy, xx = np.mgrid[0:56, 0:72].astype(np.float32)
+    flow = np.dstack([2 + np.sin(yy / 6), -1 + np.cos(xx / 5)]).astype(np.float32)
+    JF.flow_write(tmp_path / "f.flo", flow)
+    JW.main([str(tmp_path / p) for p in ("i.png", "m.png", "f.flo", "jw.png",
+                                         "jm.png")] + ["--backend", "device"])
+    TW.main([str(tmp_path / p) for p in ("i.png", "m.png", "f.flo", "tw.png",
+                                         "tm.png")] + ["--device", "cpu"])
+    for j, t in (("jw.png", "tw.png"), ("jm.png", "tm.png")):
+        np.testing.assert_array_equal(load_rgb(tmp_path / t),
+                                      load_rgb(tmp_path / j))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        TW.warp_image(*(tmp_path / p for p in ("i.png", "m.png", "f.flo",
+                                               "a.png", "b.png")),
+                      device="cpu", backend="host")
+
+
+def test_main_dispatch(capsys):
+    assert TMain.main(["--help"]) == 0
+    assert TMain.main(["nope"]) == 1
+    assert "deform" in capsys.readouterr().out
+
+
+def test_cli_device_is_explicit():
+    assert cli_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert cli_device("cuda").type == "cuda"
+    else:
+        with pytest.raises(SystemExit):
+            cli_device("cuda")
+
+
+def test_framework_config_from_env_matches_jax(monkeypatch):
+    monkeypatch.setenv("ARAP_SCHEDULE", "fast")
+    monkeypatch.setenv("ARAP_RASTER", "host")
+    monkeypatch.setenv("ARAP_W_FIT", "50")
+    monkeypatch.setenv("ARAP_MATCHER", "file")
+    t = FrameworkConfig.from_env(solver=TD.make_config("parity"))
+    j = JFramework.from_env(solver=JD.make_config("parity"))
+    assert t.weights == tuple(j.weights)
+    assert (t.raster, t.matcher) == (j.raster, j.matcher)
+    for f in ("pcg_iters_early", "anneal_split", "q_tolerance"):
+        assert getattr(t.solver, f) == getattr(j.solver, f)
+    monkeypatch.setenv("ARAP_BACKEND", "cuda")
+    assert FrameworkConfig.from_env().solver.backend == "cuda"
+    monkeypatch.setenv("ARAP_BACKEND", "pallas")  # a JAX name: ignored
+    assert FrameworkConfig.from_env().solver.backend == "auto"
+    assert TD.make_config("fast").q_tolerance == 1e-4
