@@ -1,12 +1,18 @@
 """Unified CLI: ``python -m arap_flow_tpu_torch <command> [args...]``.
 
-Commands: deform (arap_deform), warp (warp_image).
+Commands: para_gen (dataset generation), generate (phase by phase),
+run_arap (batch deform over path lists), run_warp (batch warp), deform
+(arap_deform), warp (warp_image).
 """
 
 import importlib
 import sys
 
 COMMANDS = {
+    "para_gen": ("arap_flow_tpu_torch.pipeline.para_gen", "main"),
+    "generate": ("arap_flow_tpu_torch.pipeline.generate", "main"),
+    "run_arap": ("arap_flow_tpu_torch.pipeline.run_arap", "main"),
+    "run_warp": ("arap_flow_tpu_torch.pipeline.run_warp", "main"),
     "deform": ("arap_flow_tpu_torch.pipeline.deform_tool", "main"),
     "warp": ("arap_flow_tpu_torch.pipeline.warp_tool", "main"),
 }

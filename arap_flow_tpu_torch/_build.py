@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels (nvcc -> plain C-ABI .so -> ctypes).
 
-The library is compiled on first use from the sources in ``csrc/`` into
-``_build/``, keyed by a hash of the sources and the compiler flags, so an
-edited source rebuilds and an unchanged one loads at once. The build runs
+Each source in ``csrc/`` is compiled on first use into its own library in
+``_build/``, keyed by a hash of the source and the compiler flags, so an
+edited source rebuilds and an unchanged one loads at once. The missing
+libraries are compiled together, one nvcc process per source. The build runs
 only on a machine with the CUDA toolkit; nothing here runs at import time.
 """
 
@@ -20,7 +21,7 @@ import time
 _HERE = osp.dirname(osp.abspath(__file__))
 _SRC_DIR = osp.join(_HERE, "csrc")
 BUILD_DIR = osp.join(_HERE, "_build")
-SOURCES = ("pcg.cu",)
+SOURCES = ("pcg.cu", "zncc.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,49 +39,67 @@ def nvcc_path() -> str:
     return cand
 
 
-def _key() -> str:
+def lib_path(source: str) -> str:
+    """Path of the library built from `source` with the current flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(osp.join(_SRC_DIR, name), "rb") as f:
-            h.update(name.encode() + b"\0" + f.read())
-    return h.hexdigest()[:16]
+    with open(osp.join(_SRC_DIR, source), "rb") as f:
+        h.update(source.encode() + b"\0" + f.read())
+    stem = osp.splitext(source)[0]
+    return osp.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
 
-def build() -> tuple[str, float]:
-    """Compile the kernel library if it is not built yet; returns (path of
-    the .so, seconds spent compiling — 0 when it was already built). The
-    compiler's report (registers, spills) is kept beside it as a .log."""
-    lib = osp.join(BUILD_DIR, f"libarap_kernels-{_key()}.so")
-    if osp.exists(lib):
-        return lib, 0.0
+def build() -> tuple[list[str], float]:
+    """Compile every library that is not built yet, all nvcc processes
+    started together; returns (paths of the .so files, seconds spent
+    compiling — 0 when all were built). Each compiler report (registers,
+    spills) is kept beside its library as a .log."""
+    libs = [lib_path(s) for s in SOURCES]
+    todo = [(s, lib) for s, lib in zip(SOURCES, libs) if not osp.exists(lib)]
+    if not todo:
+        return libs, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *(osp.join(_SRC_DIR, s) for s in SOURCES)]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    with open(lib[: -len(".so")] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    return lib, seconds
+    procs = []
+    for src, lib in todo:
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, osp.join(_SRC_DIR, src)]
+        procs.append((lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for lib, tmp, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{osp.basename(lib)}: nvcc exited "
+                          f"{proc.returncode}:\n{out}")
+            continue
+        with open(lib[: -len(".so")] + ".log", "w") as f:
+            f.write(out)
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs, time.perf_counter() - t0
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, with every C function's
-    argument and result types declared."""
-    path, _ = build()
-    lib = ctypes.CDLL(path)
+def load(stem: str) -> ctypes.CDLL:
+    """Build (if needed) and load the library of ``csrc/<stem>.cu``, with
+    every C function's argument and result types declared."""
+    build()
+    lib = ctypes.CDLL(lib_path(stem + ".cu"))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.pcg_fixed_nblk.argtypes = [i, i]
-    lib.pcg_fixed_nblk.restype = i
-    lib.pcg_error_string.argtypes = [i]
-    lib.pcg_error_string.restype = ctypes.c_char_p
-    lib.pcg_fixed_f32.argtypes = [vp] * 12 + [i, i, i, i, vp]
-    lib.pcg_fixed_f32.restype = i
+    if stem == "pcg":
+        lib.pcg_fixed_nblk.argtypes = [i, i]
+        lib.pcg_fixed_nblk.restype = i
+        lib.pcg_error_string.argtypes = [i]
+        lib.pcg_error_string.restype = ctypes.c_char_p
+        lib.pcg_fixed_f32.argtypes = [vp] * 12 + [i, i, i, i, vp]
+        lib.pcg_fixed_f32.restype = i
+    elif stem == "zncc":
+        lib.zncc_error_string.argtypes = [i]
+        lib.zncc_error_string.restype = ctypes.c_char_p
+        lib.zncc_search_f32.argtypes = [vp] * 7 + [i, i, i, i, i, vp]
+        lib.zncc_search_f32.restype = i
+    else:
+        raise ValueError(f"no kernel library {stem!r}")
     return lib

@@ -155,7 +155,7 @@ def pcg_fixed(b, pre, s, c, vmasks, fitmask, wf2, wr2,
     ):
         _check(name, t, shape, dev)
 
-    lib = _build.load()
+    lib = _build.load("pcg")
     delta = torch.empty_like(b)
     r, p, ap = (torch.empty_like(b) for _ in range(3))
     part = torch.empty((3, B, lib.pcg_fixed_nblk(H, W)), dtype=torch.float32,

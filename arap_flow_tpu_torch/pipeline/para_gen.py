@@ -1,0 +1,721 @@
+"""Dataset generation entry point (pipeline/para_gen.py of the JAX package).
+
+Scans an input tree for frame pairs at distance --fd, preprocesses them,
+finds sparse correspondences with the ZNCC pyramid matcher
+(``ops.matching``), filters them to segment-consistent short-displacement
+constraints, composites random backgrounds, ARAP-solves each (frame,
+segment), composes the per-segment products and writes Flow/.flo, the
+warped RGB/mask trees and ``all_files.list``.
+
+    python -m arap_flow_tpu_torch para_gen --input ROOT --output OUT \\
+        --mode batched --multseg --device cuda
+
+Input layout: ROOT/orgRGB/SEQ/<n>.{jpg,png} frames and ROOT/orgMasks/SEQ/
+<n>.png annotation masks (0 = background, nonzero = segment id). PNG frames
+need no PIL; JPEG frames, --size and --bg_dir resize through PIL.
+
+Modes: ``simple`` solves pair by pair; ``batched`` decodes a chunk of
+2·--narap pairs, matches same-shaped pairs together (sub-batches of up to
+MATCH_SUBBATCH pairs, one zncc_search call per search level for the whole
+sub-batch) and solves the chunk's segments bucketed by shape
+(``pipeline.batch.BatchRunner``), retrying a failed chunk pair by pair. The
+next chunk's frames decode on the host while the current chunk's solves
+run on the device. Writes are synchronous.
+
+Not yet ported: ``--mode sharded``, ``--matcher binary``, the prep worker
+thread and the native asynchronous writer of the JAX package. ``--warmup``
+and ``--exec_pack`` are accepted and only build and load the CUDA kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import os.path as osp
+import re
+import time
+import zlib
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..io import flo
+from ..io.constraints import filter_matches, read_matches, write_constraint_file
+from ..io.image import (load_mask, load_rgb, mask_to_arap, pil_image,
+                        save_image, segment_mask_to_arap)
+from ..models.arap import ArapDeformer
+from ..ops.solver import SolverConfig
+from ..utils.config import FrameworkConfig, cli_device
+from ..utils.profiling import StageTimer
+
+log = logging.getLogger("arap_flow_tpu_torch.para_gen")
+
+TIMER = StageTimer()
+
+# pairs per matcher call in batched mode
+MATCH_SUBBATCH = 4
+
+# directory names of the reference's para_gen.py:18-26
+ORGCOLOR = "orgRGB"
+ORGMASK = "orgMasks"
+COLOR_DIR = "inpRGB"
+MASK_DIR = "inpMasks"
+CNSTR_DIR = "tmpCnstr"
+FLOW_DIR = "Flow"
+WRGB_DIR = "wRGB"
+WMASK_DIR = "wMasks"
+
+# what a broken input file raises while it is decoded
+_DECODE_ERRORS = (OSError, ValueError, zlib.error)
+
+
+@dataclass
+class PairPaths:
+    """All generated and original paths of one frame pair."""
+
+    rgb1_gen: str
+    msk1_gen: str
+    rgb2_gen: str
+    msk2_gen: str
+    cstr_tmp: str
+    flow_gen: str
+    rgb1_org: str
+    msk1_org: str
+    rgb2_org: str
+    msk2_org: str
+
+
+@dataclass
+class PipelineFlags:
+    input: str
+    output: str
+    bg_dir: str | None = None
+    gpu: list = field(default_factory=lambda: [0])  # accepted for CLI parity
+    multseg: bool = False
+    resume: bool = False
+    narap: int = 2  # chunk = 2 × narap pairs in batched mode
+    size: tuple | None = None  # (w, h) to resize and centre-crop to
+    fd: int = 1
+    matcher: str = "native"  # native | file (binary is not yet ported)
+    dm_bin: str | None = None
+    schedule: str = "parity"  # parity | fast
+    seed: int | None = None
+    mode: str = "simple"  # simple | batched (sharded is not yet ported)
+    warmup: bool = False  # build and load the kernels up front
+    shard: tuple | None = None  # (i, n): this host takes pairs i, i+n, ...
+    match_downscale: int = 1  # match on a 2^k-pooled image
+    # "count" skips pairs with <= 10 object pixels; "refsum" replicates the
+    # reference's mask.sum() > 10 over pixel values (para_gen.py:251)
+    mask_gate: str = "count"
+    device: str = "cuda"
+
+
+def scale_rotate(im: np.ndarray, mk: np.ndarray, size):
+    """Preprocessing (the reference's para_gen.py:253-291): transpose
+    portrait frames, then resize (+10 px slack, through PIL) and centre-crop
+    to `size` (w, h). Returns (preprocessed, im, mk)."""
+    if im.shape[:2] != mk.shape[:2]:
+        raise ValueError(
+            f"Image and mask must be of the same size but given "
+            f"{im.shape[1::-1]} vs {mk.shape[1::-1]}")
+    preprocessed = False
+    if im.shape[0] > im.shape[1]:
+        im = np.ascontiguousarray(im.swapaxes(0, 1))
+        mk = np.ascontiguousarray(mk.swapaxes(0, 1))
+        preprocessed = True
+    if size is not None and (im.shape[1], im.shape[0]) != tuple(size):
+        Image = pil_image()
+        r = max(float(size[0] + 10) / im.shape[1],
+                float(size[1] + 10) / im.shape[0])
+        w, h = (np.array([im.shape[1], im.shape[0]]) * r).astype(int)
+        left = w // 2 - size[0] // 2
+        upper = h // 2 - size[1] // 2
+        box = (left, upper, left + size[0], upper + size[1])
+        im = np.array(Image.fromarray(im).resize((w, h), Image.LANCZOS).crop(box))
+        mk = np.array(Image.fromarray(mk).resize((w, h), Image.NEAREST).crop(box))
+        preprocessed = True
+    return preprocessed, im, mk
+
+
+class BackgroundPool:
+    """Random background images: scanned once, drawn without replacement
+    until the pool refills; files that fail to decode are dropped
+    (para_gen.py:365-375, 484-497). Draws use the numpy Generator `rng` in
+    the JAX package's order, so a seed gives the same backgrounds. Fitting
+    a background resizes it through PIL."""
+
+    def __init__(self, bg_dir, rng: np.random.Generator):
+        self.rng = rng
+        self.paths: list[str] = []
+        if bg_dir and osp.isdir(bg_dir):
+            for root, _, files in os.walk(bg_dir):
+                for f in files:
+                    up = f.upper()
+                    if ".PNG" in up or ".JPG" in up or ".JPEG" in up:
+                        self.paths.append(osp.join(root, f))
+        if self.paths:
+            pil_image()  # fail now, not at the first pair, without PIL
+        self.tmp: list[str] = []
+
+    def fit(self, bg: np.ndarray, shape) -> np.ndarray:
+        """Random 1-2× upscale and random crop to `shape` (fit_bg,
+        para_gen.py:36-48)."""
+        Image = pil_image()
+        imh, imw = shape[:2]
+        bgh, bgw = bg.shape[:2]
+        r = self.rng.uniform(1, 2) * max(
+            float(max(bgh, imh)) / bgh, float(max(bgw, imw)) / bgw
+        )
+        bg = np.array(Image.fromarray(bg).resize(
+            (int(bgw * r), int(bgh * r)), Image.LANCZOS))
+        sy = self.rng.integers(0, bg.shape[0] - imh + 1)
+        sx = self.rng.integers(0, bg.shape[1] - imw + 1)
+        return bg[sy : sy + imh, sx : sx + imw, :3]
+
+    def draw(self, shape) -> np.ndarray | None:
+        while self.paths:
+            if not self.tmp:
+                self.tmp = sorted(self.paths)
+            p = self.tmp[self.rng.integers(0, len(self.tmp))]
+            self.tmp.remove(p)
+            try:
+                bg = load_rgb(p)
+            except _DECODE_ERRORS:
+                self.paths.remove(p)
+                continue
+            return self.fit(bg, shape)
+        return None
+
+
+def add_bg(im: np.ndarray, mk: np.ndarray, bgim: np.ndarray, bgval=0):
+    """Background compositing (add_bg, para_gen.py:50-61)."""
+    if mk.shape != im.shape[:-1] or bgim.shape != im.shape:
+        raise ValueError(f"add_bg: image {im.shape}, mask {mk.shape}, "
+                         f"background {bgim.shape}")
+    out = im.copy()
+    idx = mk == bgval
+    out[idx] = bgim[idx]
+    return out
+
+
+def scan_pairs(flags: PipelineFlags) -> list[PairPaths]:
+    """Input-tree scan with frame-distance pairing (para_gen.py:384-434):
+    frames matched by the trailing number of ``(\\d+).(jpe?g|png)``
+    (case-insensitive), masks as .png; a pair is skipped when frame t+fd or
+    either mask is missing; --resume skips pairs whose .flo exists."""
+    rgb_org = osp.join(flags.input, ORGCOLOR)
+    msk_org = osp.join(flags.input, ORGMASK)
+    out = flags.output
+    reg = re.compile(r"(\d+)\.(jpe?g|png)", flags=re.IGNORECASE)
+
+    pairs: list[PairPaths] = []
+    for root, dirs, _ in os.walk(rgb_org):
+        for d in sorted(dirs):
+            folder = osp.join(root, d)
+            files = sorted(
+                f for f in os.listdir(folder) if reg.search(f) is not None
+            )
+            for f1 in files:
+                seq = osp.join(root.replace(rgb_org, "").strip(osp.sep), d)
+                f, ext = osp.splitext(f1)
+                if not osp.exists(osp.join(msk_org, seq, f + ".png")):
+                    continue
+                num = reg.search(f1)
+                n = "{:0" + str(len(num.group(1))) + "d}"
+                nxt = int(num.group(1)) + flags.fd
+                # substitute only the matched digit run: str.replace would
+                # also rewrite an earlier occurrence of the same digits
+                a, b = num.span(1)
+                f2 = f[:a] + n.format(nxt) + f[b:]
+                if not osp.exists(osp.join(rgb_org, seq, f2 + ext)) or not osp.exists(
+                    osp.join(msk_org, seq, f2 + ".png")
+                ):
+                    continue
+                pp = PairPaths(
+                    rgb1_gen=osp.abspath(osp.join(out, COLOR_DIR, seq, f + ".png")),
+                    msk1_gen=osp.abspath(osp.join(out, MASK_DIR, seq, f + ".png")),
+                    rgb2_gen=osp.abspath(osp.join(out, WRGB_DIR, seq, f + ".png")),
+                    msk2_gen=osp.abspath(osp.join(out, WMASK_DIR, seq, f + ".png")),
+                    cstr_tmp=osp.abspath(osp.join(out, CNSTR_DIR, seq, f + ".txt")),
+                    flow_gen=osp.abspath(osp.join(out, FLOW_DIR, seq, f + ".flo")),
+                    rgb1_org=osp.abspath(osp.join(rgb_org, seq, f1)),
+                    msk1_org=osp.abspath(osp.join(msk_org, seq, f + ".png")),
+                    rgb2_org=osp.abspath(osp.join(rgb_org, seq, f2 + ext)),
+                    msk2_org=osp.abspath(osp.join(msk_org, seq, f2 + ".png")),
+                )
+                if not flags.resume or not osp.exists(pp.flow_gen):
+                    pairs.append(pp)
+    if flags.shard is not None:
+        # host i of n takes every n-th pair of the sorted scan
+        i, n = flags.shard
+        if not 0 <= i < n:
+            raise ValueError(f"--shard {i}/{n}")
+        pairs = pairs[i::n]
+    return pairs
+
+
+def run_matching(flags: PipelineFlags, p: PairPaths, rgb1, rgb2,
+                 roi_mask=None) -> np.ndarray:
+    """Raw matches (N, 4) int32 of a pair: the native matcher on
+    flags.device, or the pair's cached matcher file (--matcher file)."""
+    if flags.matcher == "file":
+        return read_matches(p.cstr_tmp)
+    if flags.matcher != "native":
+        raise NotImplementedError(
+            f"--matcher {flags.matcher} is not yet ported; use native or file")
+    from ..ops.matching import match_images
+
+    return match_images(
+        rgb1, rgb2, radius=100, downscale=flags.match_downscale,
+        roi_mask=roi_mask, device=torch.device(flags.device),
+    )[:, :4].astype(np.int32)
+
+
+def has_mask(msk1, msk2, gate: str = "count") -> bool:
+    """Both masks must have enough object content (para_gen.py:243-251):
+    more than 10 nonzero pixels ("count"), or the reference's sum of pixel
+    values above 10 ("refsum")."""
+    if gate == "refsum":
+        return int(np.sum(msk1)) > 10 and int(np.sum(msk2)) > 10
+    return int(np.sum(msk1 != 0)) > 10 and int(np.sum(msk2 != 0)) > 10
+
+
+def _ensure_dirs(p: PairPaths):
+    for path in vars(p).values():
+        os.makedirs(osp.dirname(path), exist_ok=True)
+
+
+@dataclass
+class PairWork:
+    """Host-side products of one pair's prep stage, awaiting solves."""
+
+    p: PairPaths
+    out1: np.ndarray  # frame 1 with the background composited
+    bgim: np.ndarray | None
+    segments: list  # [(seg_id, arap_mask (H, W) u8, constraints (N, 4))]
+
+
+def decode_pair(flags: PipelineFlags, p: PairPaths):
+    """Decode and preprocess one pair; returns (im1, mk1, im2, mk2), or None
+    when a mask is empty (has_mask)."""
+    with TIMER.stage("decode+preprocess"):
+        _, im1, mk1 = scale_rotate(load_rgb(p.rgb1_org), load_mask(p.msk1_org),
+                                   flags.size)
+        _, im2, mk2 = scale_rotate(load_rgb(p.rgb2_org), load_mask(p.msk2_org),
+                                   flags.size)
+    if not has_mask(mk1, mk2, flags.mask_gate):
+        return None
+    return im1, mk1, im2, mk2
+
+
+def prep_pair(
+    flags: PipelineFlags, p: PairPaths, bgpool: BackgroundPool,
+    prematched: np.ndarray | None = None,
+    decoded: tuple | None = None,
+) -> PairWork | None:
+    """Host and matcher stage of one pair: preprocessing, matching,
+    filtering, background, per-segment masks and constraints. `decoded`
+    reuses a decode_pair result, `prematched` a match result."""
+    _ensure_dirs(p)
+    if decoded is None:
+        decoded = decode_pair(flags, p)
+    if decoded is None:
+        return None
+    im1, mk1, im2, mk2 = decoded
+
+    if prematched is not None:
+        matches = prematched
+    else:
+        with TIMER.stage("matching"):
+            matches = run_matching(flags, p, im1, im2, roi_mask=mk1)
+    kept, seg_ids = filter_matches(matches, mk1, mk2)
+    write_constraint_file(p.cstr_tmp, kept)
+    if len(kept) == 0:
+        return None
+
+    with TIMER.stage("background+inputs-io"):
+        bgim = bgpool.draw(im1.shape)
+        out1 = add_bg(im1, mk1, bgim) if bgim is not None else im1
+        save_image(p.rgb1_gen, out1)
+
+    segments = []
+    if not flags.multseg:
+        arap_mask = mask_to_arap(mk1)
+        save_image(p.msk1_gen, arap_mask)
+        segments.append((0, arap_mask, kept))
+    else:
+        for s in np.unique(seg_ids):
+            if s == 0:
+                continue
+            segments.append((int(s), segment_mask_to_arap(mk1, s),
+                             kept[seg_ids == s]))
+        if not segments:
+            return None
+        save_image(p.msk1_gen, mask_to_arap(mk1))
+    return PairWork(p=p, out1=out1, bgim=bgim, segments=segments)
+
+
+def finish_pair(work: PairWork, seg_results: list) -> list[str]:
+    """Compose the per-segment results (flatten, para_gen.py:151-164),
+    re-apply the background to uncovered warped pixels and write the
+    products. Returns the list triple [inpRGB, wRGB, flo]."""
+    p = work.p
+    flow = seg_results[0].flow.copy()
+    wrgb = seg_results[0].warped_rgb.copy()
+    wmask = seg_results[0].warped_mask.copy()
+    for r in seg_results[1:]:
+        ob = r.warped_mask != 0
+        flow[ob] = r.flow[ob]
+        wrgb[ob] = r.warped_rgb[ob]
+        wmask[ob] = r.warped_mask[ob]
+    if work.bgim is not None:
+        wrgb = add_bg(wrgb, wmask, work.bgim)
+    flo.flow_write(p.flow_gen, flow.astype(np.float32))
+    save_image(p.rgb2_gen, wrgb)
+    save_image(p.msk2_gen, wmask)
+    return [p.rgb1_gen, p.rgb2_gen, p.flow_gen]
+
+
+def process_pair(flags: PipelineFlags, p: PairPaths, deformer: ArapDeformer,
+                 bgpool: BackgroundPool) -> list[str] | None:
+    """One frame pair end to end (simple mode). Returns the list triple, or
+    None when the pair is skipped."""
+    work = prep_pair(flags, p, bgpool)
+    if work is None:
+        return None
+    with TIMER.stage("solve+raster"):
+        seg_results = [
+            deformer.deform(work.out1, arap_mask, cons)
+            for _, arap_mask, cons in work.segments
+        ]
+    with TIMER.stage("compose+outputs-io"):
+        return finish_pair(work, seg_results)
+
+
+def prep_chunk_dispatch_match(flags: PipelineFlags, pairs):
+    """Decode a chunk's pairs and enqueue their matcher on the device
+    without waiting for it. Same-shaped pairs go through one
+    match_images_dispatch_multi call per sub-batch of up to MATCH_SUBBATCH
+    pairs, at their real count. Returns [(pair, handle, decoded)], or None
+    when the matcher is not native."""
+    if flags.matcher != "native":
+        return None
+    from ..ops.matching import match_images_dispatch_multi
+
+    device = torch.device(flags.device)
+    handles = []
+    with TIMER.stage("match dispatch"):
+        decoded = []
+        for p in pairs:
+            try:
+                _ensure_dirs(p)
+                d = decode_pair(flags, p)
+            except _DECODE_ERRORS as e:
+                log.warning("pair decode failed: %s (%s)", p.rgb1_org, e)
+                continue
+            if d is not None:
+                decoded.append((p, d))
+        groups: dict = {}
+        for p, d in decoded:
+            groups.setdefault(d[0].shape, []).append((p, d))
+        for grp in groups.values():
+            for i in range(0, len(grp), MATCH_SUBBATCH):
+                sub = grp[i : i + MATCH_SUBBATCH]
+                hs = match_images_dispatch_multi(
+                    [(d[0], d[2]) for _, d in sub], radius=100,
+                    downscale=flags.match_downscale, device=device)
+                handles.extend((p, h, d) for (p, d), h in zip(sub, hs))
+    return handles
+
+
+def prep_chunk_finish(flags: PipelineFlags, pairs, handles, weights,
+                      bgpool: BackgroundPool):
+    """Fetch a chunk's matches, then filter, composite backgrounds and crop
+    each segment into its solve bucket. Returns (works, tasks, fallbacks)
+    for dispatch_chunk_batched."""
+    from ..ops.matching import match_images_fetch
+    from .batch import make_task
+
+    prematched: dict = {}
+    predecoded: dict = {}
+    if handles is not None:
+        with TIMER.stage("matching"):
+            for p, h, d in handles:
+                predecoded[id(p)] = d
+                # selection restricted to the annotated objects: the
+                # constraint filter drops off-object matches anyway
+                m = match_images_fetch(h, roi_mask=d[1])
+                prematched[id(p)] = m[:, :4].astype(np.int32)
+
+    works: list[PairWork] = []
+    tasks, fallbacks = [], []
+    for p in pairs:
+        if handles is not None and id(p) not in predecoded:
+            continue  # its decode failed or its masks are empty
+        try:
+            w = prep_pair(flags, p, bgpool, prematched.get(id(p)),
+                          decoded=predecoded.get(id(p)))
+        except _DECODE_ERRORS as e:
+            log.warning("pair prep failed: %s (%s)", p.rgb1_org, e)
+            w = None
+        if w is None:
+            continue
+        idx = len(works)
+        works.append(w)
+        for seg_id, arap_mask, cons in w.segments:
+            t = make_task(idx, seg_id, w.out1, arap_mask, cons, weights)
+            if t is not None:
+                tasks.append(t)
+            else:
+                # raw constraints: add_fallback pins the border itself
+                fallbacks.append((idx, seg_id, w.out1, arap_mask, cons))
+    return works, tasks, fallbacks
+
+
+def dispatch_chunk_batched(prepped, cfg, weights, device):
+    """Enqueue a prepped chunk's solves; returns the in-flight state for
+    collect_chunk_batched. A dispatch error is kept for the collector, which
+    retries the chunk pair by pair."""
+    from .batch import BatchRunner
+
+    works, tasks, fallbacks = prepped
+    runner = BatchRunner(cfg, device=device, weights=weights, timer=TIMER)
+    err = None
+    try:
+        for t in tasks:
+            runner.add(t)
+        for fb in fallbacks:
+            runner.add_fallback(*fb)
+        runner.flush()
+    except RuntimeError as e:  # a poisoned chunk (CUDA error, out of memory)
+        err = e
+    return works, runner, err
+
+
+def collect_chunk_batched(inflight, cfg, weights, device) -> list[str]:
+    """Copy a dispatched chunk's products back, compose and write each
+    pair; returns its list lines."""
+    works, runner, err = inflight
+    results = None
+    if err is None:
+        try:
+            results = runner.collect()
+        except RuntimeError as e:
+            err = e
+    if err is not None:
+        # failure isolation: retry the chunk pair by pair on the simple path
+        log.warning("batched chunk failed (%s); retrying per pair", err)
+        deformer = ArapDeformer(cfg, weights=weights, crop=True, device=device)
+        triples = []
+        for w in works:
+            try:
+                seg_results = [
+                    deformer.deform(w.out1, m, cns) for _, m, cns in w.segments
+                ]
+            except RuntimeError as e2:
+                log.warning("pair failed: %s (%s)", w.p.rgb1_org, e2)
+                continue
+            with TIMER.stage("compose+outputs-io"):
+                triples.append(" ".join(finish_pair(w, seg_results)))
+        return triples
+
+    triples = []
+    for idx, w in enumerate(works):
+        seg_results = [
+            results[(idx, seg_id)] for seg_id, _, _ in w.segments
+            if (idx, seg_id) in results
+        ]
+        if seg_results:
+            with TIMER.stage("compose+outputs-io"):
+                triples.append(" ".join(finish_pair(w, seg_results)))
+    return triples
+
+
+def make_solver_config(schedule: str) -> SolverConfig:
+    if schedule == "parity":
+        return SolverConfig()
+    # fast: full PCG depth only near alpha = 1
+    return SolverConfig(pcg_iters_early=150.0, anneal_split=12.0)
+
+
+def _check_ported(flags: PipelineFlags) -> None:
+    if flags.mode == "sharded":
+        raise NotImplementedError("--mode sharded is not yet ported; run one "
+                                  "process per card with --shard I/N")
+    if flags.mode not in ("simple", "batched"):
+        raise ValueError(f"unknown --mode {flags.mode!r}")
+    if flags.matcher == "binary":
+        raise NotImplementedError("--matcher binary is not yet ported")
+
+
+def main_pipeline(
+    flags: PipelineFlags, solver_cfg: SolverConfig | None = None
+) -> list[str]:
+    """Generate the dataset of `flags`; returns the lines of the list file
+    (inpRGB wRGB flo per pair) after the final existence sweep."""
+    fw = FrameworkConfig.from_env(
+        solver=solver_cfg or make_solver_config(flags.schedule),
+        matcher=flags.matcher,
+    )
+    flags.matcher = fw.matcher
+    _check_ported(flags)
+    device = torch.device(flags.device)
+    rng = np.random.default_rng(flags.seed)
+    bgpool = BackgroundPool(flags.bg_dir, rng)
+    deformer = ArapDeformer(fw.solver, weights=fw.weights, crop=True,
+                            raster=fw.raster, device=device)
+
+    pairs = scan_pairs(flags)
+    print(f"{len(pairs)} frame pairs to process")
+    if flags.warmup and device.type == "cuda":
+        from .. import _build
+
+        t0 = time.time()
+        _build.load("pcg")
+        _build.load("zncc")
+        print(f"warmup: kernels built and loaded in {time.time() - t0:.1f}s")
+    triples = []
+    begin = time.time()
+
+    if flags.mode == "batched":
+        cfg = deformer.cfg
+        chunk = max(flags.narap, 1) * 2
+        chunks = [pairs[i : i + chunk] for i in range(0, len(pairs), chunk)]
+        handles = prep_chunk_dispatch_match(flags, chunks[0]) if chunks else None
+        for i, ch in enumerate(chunks):
+            print(f"{100.0 * i * chunk / max(len(pairs), 1):.3f}%", flush=True)
+            prepped = prep_chunk_finish(flags, ch, handles, deformer.weights,
+                                        bgpool)
+            inflight = dispatch_chunk_batched(prepped, cfg, deformer.weights,
+                                              device)
+            if i + 1 < len(chunks):
+                # the next chunk decodes on the host while these solves run
+                handles = prep_chunk_dispatch_match(flags, chunks[i + 1])
+            triples += collect_chunk_batched(inflight, cfg, deformer.weights,
+                                             device)
+    else:
+        for i, p in enumerate(pairs):
+            print(f"{100.0 * i / max(len(pairs), 1):.3f}%", flush=True)
+            try:
+                t = process_pair(flags, p, deformer, bgpool)
+            except (RuntimeError, *_DECODE_ERRORS) as e:
+                # keep generating; log the failure
+                log.warning("pair failed: %s (%s)", p.rgb1_org, e)
+                t = None
+            if t is not None:
+                triples.append(" ".join(t))
+    print(f"done in {(time.time() - begin) / 60:.2f} mins")
+    if os.environ.get("ARAP_PROFILE"):
+        print(TIMER.report())
+
+    # final existence sweep (para_gen.py:594-603)
+    out_paths = [
+        line for line in triples
+        if all(osp.exists(part) for part in line.split(" "))
+    ]
+    os.makedirs(flags.output, exist_ok=True)
+    # each shard writes its own list; their union is the unsharded list
+    name = (
+        "all_files.list" if flags.shard is None
+        else f"all_files.list.{flags.shard[0]}of{flags.shard[1]}"
+    )
+    with open(osp.join(flags.output, name), "w") as f:
+        f.write("\n".join(out_paths))
+    return out_paths
+
+
+def parse_args(argv=None) -> PipelineFlags:
+    parser = argparse.ArgumentParser(
+        description="ARAP flow dataset generation (PyTorch + CUDA)"
+    )
+    parser.add_argument("--input", type=str, required=True)
+    parser.add_argument("--output", type=str, required=True)
+    parser.add_argument("--bg_dir", type=str, default=None,
+                        help="background image pool directory (needs PIL)")
+    parser.add_argument("--gpu", nargs="*", type=int, default=[0],
+                        help="accepted for CLI parity; the card is --device")
+    parser.add_argument("--multseg", action="store_true", default=False,
+                        help="if each object segment is treated separately")
+    parser.add_argument("--resume", action="store_true", default=False,
+                        help="skip pairs whose .flo already exists")
+    parser.add_argument("--narap", type=int, default=2,
+                        help="batched mode: chunks of 2 x this many pairs")
+    parser.add_argument("--size", nargs=2, type=int, default=None,
+                        help="[width] [height] to resize+crop all frames to "
+                        "(needs PIL)")
+    parser.add_argument("--fd", type=int, default=1,
+                        help="frame distance between the pair")
+    parser.add_argument("--matcher", choices=["native", "binary", "file"],
+                        default="native",
+                        help="binary (an external matcher) is not yet ported")
+    parser.add_argument("--dm_bin", default=None,
+                        help="external matcher binary (with --matcher binary)")
+    parser.add_argument("--arap_bin", default=None,
+                        help="ignored (the solver is built in); parity flag")
+    # accepted no-ops: the reference parses these but never reads them
+    parser.add_argument("--rm-cnstr", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--rm-wmask", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--rm-tmp-cmd", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--img-pattern", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--schedule", choices=["parity", "fast"],
+                        default="parity")
+    parser.add_argument("--mode", choices=["simple", "batched", "sharded"],
+                        default="simple",
+                        help="batched buckets segments across pairs; sharded "
+                        "is not yet ported")
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--shard", default=None, metavar="I/N",
+                        help="multi-host split: this host processes pairs "
+                        "I, I+N, I+2N, ... of the sorted scan (e.g. 0/4)")
+    parser.add_argument("--warmup", action="store_true",
+                        help="build and load the CUDA kernels up front")
+    parser.add_argument("--match_downscale", type=int, default=1,
+                        choices=[1, 2, 4],
+                        help="run the matcher on a 2x2^k-pooled image")
+    parser.add_argument("--exec_pack", default=None, metavar="DIR",
+                        help="accepted for CLI parity; the kernels are "
+                        "built once per checkout (like --warmup)")
+    parser.add_argument("--mask_gate", choices=["count", "refsum"],
+                        default="count",
+                        help="empty-mask skip: 'count' skips pairs with <= 10 "
+                        "object pixels; 'refsum' the reference's pixel-value "
+                        "sum <= 10")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu runs the plain "
+                        "torch path)")
+    a = parser.parse_args(argv)
+    if not 0 < a.fd < 20:
+        parser.error("Invalid fd number!")
+    return PipelineFlags(
+        input=a.input.rstrip(osp.sep),
+        output=a.output.rstrip(osp.sep),
+        bg_dir=a.bg_dir,
+        gpu=a.gpu,
+        multseg=a.multseg,
+        resume=a.resume,
+        narap=a.narap,
+        size=tuple(a.size) if a.size else None,
+        fd=a.fd,
+        matcher=a.matcher,
+        dm_bin=a.dm_bin,
+        schedule=a.schedule,
+        seed=a.seed,
+        mode=a.mode,
+        warmup=a.warmup or a.exec_pack is not None,
+        shard=tuple(int(x) for x in a.shard.split("/")) if a.shard else None,
+        match_downscale=a.match_downscale,
+        mask_gate=a.mask_gate,
+        device=str(cli_device(a.device)),
+    )
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO)
+    main_pipeline(parse_args(argv))
+    return 0
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,284 @@
+"""The port's matcher against the JAX package's: the ZNCC search (plain
+version and wrapper) against ``_search(_zscore(·))`` and the Pallas kernel
+in interpret mode, the pyramid flow, the device grid selection, the host
+selection and the full ``match_images``, on numpy-seeded inputs.
+
+Tolerances: scores within 2e-4 and the same argmax on > 97% of pixels
+(tests/test_pallas_match.py: the box sums are taken in another order, so
+near-exact ties between offsets may flip). Whole matches: the kept grid
+points may differ on at most 3% of their union, and ≥ 97% of the shared
+points have identical integer targets. The host selection copies are held
+bit-equal.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy.signal import convolve2d
+
+from arap_flow_tpu.ops import matching as JM
+from arap_flow_tpu.ops.pallas_match import zncc_search as jax_zncc
+from arap_flow_tpu_torch.ops import matching as TM
+from arap_flow_tpu_torch.ops import zncc as TZ
+
+torch.set_num_threads(2)
+
+
+def _mk(shape, seed):
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=shape).astype(np.float32)
+    k = np.ones((3, 3), np.float32) / 9.0
+    return convolve2d(base, k, mode="same").astype(np.float32)
+
+
+def _mk_pair(H, W, dy, dx, seed):
+    """tests/test_pallas_match.py's fixture."""
+    a = _mk((H + 40, W + 40), seed)
+    p1 = a[20 : 20 + H, 20 : 20 + W]
+    p2 = a[20 + dy : 20 + dy + H, 20 + dx : 20 + dx + W]
+    return np.ascontiguousarray(p1), np.ascontiguousarray(p2)
+
+
+def _texture(H, W, seed=0):
+    """tests/test_matching.py's texture."""
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal((H // 4 + 2, W // 4 + 2))
+    up = np.kron(base, np.ones((4, 4)))[:H, :W]
+    g = up + rng.standard_normal((H, W)) * 0.3
+    g = (g - g.min()) / (np.ptp(g) + 1e-9) * 255
+    return np.repeat(g[:, :, None], 3, axis=2).astype(np.uint8)
+
+
+def _shifted(im, dx, dy):
+    return np.roll(np.roll(im, dy, axis=0), dx, axis=1)
+
+
+@pytest.mark.parametrize("radius", [2, 5])
+def test_plain_matches_jax_search(radius):
+    p1, p2 = _mk_pair(48, 64, 3, -2, 0)
+    ru, rv, rs = (np.asarray(a) for a in JM._search(
+        JM._zscore(jnp.asarray(p1), 12), JM._zscore(jnp.asarray(p2), 12),
+        radius, 12))
+    ku, kv, ks = (np.asarray(a) for a in jax_zncc(
+        jnp.asarray(p1), jnp.asarray(p2), radius, patch=12, interpret=True))
+    du, dv, sc = (t.numpy() for t in TZ.zncc_search_plain(
+        torch.tensor(p1), torch.tensor(p2), radius))
+    for u, v, s in ((ru, rv, rs), (ku, kv, ks)):
+        assert np.abs(sc - s).max() < 2e-4
+        assert ((du == u) & (dv == v)).mean() > 0.97
+
+
+def test_plain_batch_shares_the_reference():
+    """p1 (N1) against p2 (N1·G): plane b searches against p1[b // G]."""
+    pairs = [_mk_pair(32, 40, 1, 2, s) for s in (1, 2)]
+    p1 = torch.tensor(np.stack([p[0] for p in pairs]))
+    p2 = torch.tensor(np.stack([pairs[0][1], pairs[0][0], pairs[1][1],
+                                pairs[1][0]]))
+    du, dv, sc = TZ.zncc_search_plain(p1, p2, 3)
+    for b in range(4):
+        one = TZ.zncc_search_plain(p1[b // 2], p2[b], 3)
+        for got, ref in zip((du[b], dv[b], sc[b]), one):
+            torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    # a plane against itself: every pixel scores ~1 at offset 0
+    assert torch.all(du[1] == 0) and torch.all(dv[1] == 0)
+
+
+def test_plain_zscore_is_precise_on_raw_planes():
+    """The float64 z-score of a raw 0..255 plane equals a direct per-pixel
+    computation; the search's argmax is the shift."""
+    rng = np.random.default_rng(3)
+    g = (np.kron(rng.uniform(0, 255, (10, 12)), np.ones((8, 8)))
+         + rng.normal(0, 5, (80, 96))).astype(np.float32)
+    z = TZ.zscore(torch.tensor(g), 12).numpy()
+    gp = np.pad(g.astype(np.float64), ((6, 5), (6, 5)))
+    for y, x in ((0, 0), (40, 50), (79, 95), (7, 90)):
+        win = gp[y : y + 12, x : x + 12]
+        mu = win.mean()
+        var = max((win * win).mean() - mu * mu, 1e-4)
+        assert abs(z[y, x] - (g[y, x] - mu) / np.sqrt(var)) < 1e-5
+    du, dv, _ = TZ.zncc_search_plain(torch.tensor(g),
+                                     torch.tensor(np.roll(g, (2, -3), (0, 1))),
+                                     4)
+    inner = (slice(12, -12), slice(12, -12))
+    assert (du.numpy()[inner] == -3).mean() > 0.95
+    assert (dv.numpy()[inner] == 2).mean() > 0.95
+
+
+def test_wrapper_on_cpu_is_plain_and_not_counted():
+    p1, p2 = (torch.tensor(a) for a in _mk_pair(24, 40, 1, 1, 4))
+    before = dict(TZ.LAUNCHES)
+    for got, ref in zip(TZ.zncc_search(p1, p2, 2),
+                        TZ.zncc_search_plain(p1, p2, 2)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert TZ.LAUNCHES == before
+
+
+def test_wrapper_refuses_other_devices_and_bad_batches():
+    p1, p2 = (torch.tensor(a) for a in _mk_pair(24, 40, 1, 1, 5))
+    with pytest.raises(ValueError, match="no kernel"):
+        TZ.zncc_search(p1.to("meta"), p2.to("meta"), 2)
+    with pytest.raises(ValueError):
+        TZ.zncc_search(torch.stack([p1, p1]), torch.stack([p2] * 3), 2)
+
+
+@pytest.mark.parametrize("rotations", [(0.0,), JM.DEFAULT_ROTATIONS])
+def test_pyramid_flow_matches_jax(rotations):
+    im1 = _texture(96, 128, 1)
+    im2 = _shifted(im1, 5, -3)
+    g1, g2 = (im.astype(np.float32)[..., 0] for im in (im1, im2))
+    jf, js = (np.asarray(a) for a in JM.pyramid_flow(
+        jnp.asarray(g1), jnp.asarray(g2), radius=16, levels=2,
+        rotations=rotations))
+    tf, ts = TM.pyramid_flow(torch.tensor(g1), torch.tensor(g2), radius=16,
+                             levels=2, rotations=rotations)
+    same = (tf.numpy() == jf).all(axis=0)
+    assert same.mean() > 0.97
+    assert np.abs(ts.numpy() - js)[same].max() < 2e-4
+
+
+def test_match_grid_matches_jax():
+    im1 = _texture(96, 112, 2)
+    im2 = _shifted(im1, -4, 6)
+    r1, r2 = (np.ascontiguousarray(im.transpose(2, 0, 1)) for im in (im1, im2))
+    j = [np.asarray(a) for a in JM.match_grid(
+        jnp.asarray(r1), jnp.asarray(r2), radius=24, levels=1)]
+    t = [a.numpy() for a in TM.match_grid(torch.tensor(r1), torch.tensor(r2),
+                                          radius=24, levels=1)]
+    same = (t[0] == j[0]) & (t[1] == j[1])
+    assert same.mean() > 0.97
+    assert np.abs(t[2] - j[2])[same].max() < 2e-4
+    assert np.abs(t[3] - j[3])[same].max() < 1e-4
+
+
+def _compare_matches(j, t):
+    """The kept grid points differ on ≤ 3% of their union; ≥ 97% of the
+    shared ones have identical integer targets."""
+    kj = {tuple(r[:2]): r for r in j}
+    kt = {tuple(r[:2]): r for r in t}
+    shared = set(kj) & set(kt)
+    union = set(kj) | set(kt)
+    assert len(shared) >= 0.97 * len(union), (len(shared), len(union))
+    same = np.mean([np.array_equal(kj[k][2:4], kt[k][2:4]) for k in shared])
+    assert same >= 0.97, same
+
+
+@pytest.mark.parametrize("case", [
+    dict(size=(96, 128), shift=(7, -4), kw=dict(radius=16, levels=2)),
+    dict(size=(144, 176), shift=(3, 2), kw=dict()),
+    dict(size=(144, 176), shift=(-6, 5), kw=dict(downscale=2)),
+    dict(size=(120, 136), shift=(2, 4), kw=dict(radius=20, levels=1),
+         roi=True),
+])
+def test_match_images_matches_jax(case):
+    H, W = case["size"]
+    im1 = _texture(H, W, H + W)
+    im2 = _shifted(im1, *case["shift"])
+    kw = dict(case["kw"])
+    if case.get("roi"):
+        roi = np.zeros((H, W), np.uint8)
+        roi[20:90, 30:110] = 1
+        kw["roi_mask"] = roi
+    j = JM.match_images(im1, im2, **kw)
+    t = TM.match_images(im1, im2, device="cpu", **kw)
+    assert t.dtype == np.float32 and t.shape[1] == 5 and len(j) > 50
+    _compare_matches(j, t)
+    if case.get("roi"):
+        assert np.all(roi[t[:, 1].astype(int), t[:, 0].astype(int)] != 0)
+
+
+def test_dispatch_multi_equals_per_pair():
+    pairs = []
+    for k in range(3):
+        im = _texture(96, 112, 10 + k)
+        pairs.append((im, _shifted(im, 2 - k, k)))
+    hs = TM.match_images_dispatch_multi(pairs, radius=16, levels=1,
+                                        device="cpu")
+    for (a, b), h in zip(pairs, hs):
+        one = TM.match_images(a, b, radius=16, levels=1, device="cpu")
+        np.testing.assert_array_equal(TM.match_images_fetch(h), one)
+
+
+def test_host_selection_copies_bit_equal():
+    rng = np.random.default_rng(11)
+    for gh, gw, n_bad in ((20, 30, 40), (70, 80, 300)):  # k-NN / grid window
+        u = np.round(rng.normal(3, 0.5, (gh, gw))).astype(np.float32)
+        v = np.round(rng.normal(-2, 0.5, (gh, gw))).astype(np.float32)
+        flat = rng.choice(gh * gw, n_bad, replace=False)
+        u.ravel()[flat] += rng.uniform(-30, 30, n_bad).astype(np.float32)
+        sc = rng.uniform(0, 1, (gh, gw)).astype(np.float32)
+        fb = rng.uniform(0, 2, (gh, gw)).astype(np.float32)
+        roi = (rng.uniform(size=(gh * 4, gw * 4)) > 0.2).astype(np.uint8)
+        for kw in (dict(), dict(roi=roi), dict(coherence=False),
+                   dict(off=1, step=2)):
+            args = (u, v, sc, fb, gh * 4, gw * 4, 4, 1.5, 0.3, 100)
+            np.testing.assert_array_equal(TM._select_from_grids(*args, **kw),
+                                          JM._select_from_grids(*args, **kw))
+        keep = sc > 0.2
+        np.testing.assert_array_equal(TM._coherence_keep(keep, u, v),
+                                      JM._coherence_keep(keep, u, v))
+
+
+@pytest.mark.parametrize("hw", [(480, 854), (64, 80), (150, 100), (36, 40),
+                                (300, 2000)])
+def test_clamp_match_params_equal(hw):
+    for radius, levels in ((100, 3), (16, 2), (50, 4)):
+        assert TM.clamp_match_params(*hw, radius, 12, levels) == (
+            JM.clamp_match_params(*hw, radius, 12, levels))
+
+
+def test_constants_and_write_matches_equal(tmp_path):
+    assert TM.DEFAULT_ROTATIONS == JM.DEFAULT_ROTATIONS
+    assert TM.STRETCH_HYPOTHESES == JM.STRETCH_HYPOTHESES
+    m = np.random.default_rng(12).uniform(0, 90, (17, 5)).astype(np.float32)
+    TM.write_matches(tmp_path / "t.txt", m)
+    JM.write_matches(tmp_path / "j.txt", m)
+    assert (tmp_path / "t.txt").read_bytes() == (tmp_path / "j.txt").read_bytes()
+
+
+def test_subpatch_is_not_yet_ported():
+    im = _texture(96, 112, 13)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        TM.match_images(im, im, radius=16, levels=1, subpatch=True,
+                        device="cpu")
+
+
+def test_zncc_calls_counts_the_searches(monkeypatch):
+    """One zncc_search call per search level, whatever the pair count."""
+    calls = []
+    real = TM.zncc_search
+
+    def counting(*args, **kwargs):
+        calls.append(args[1].shape)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(TM, "zncc_search", counting)
+    rgb = torch.tensor(np.stack([_texture(96, 112, 14 + k).transpose(2, 0, 1)
+                                 for k in range(3)]))
+    TM.match_grid_multi(rgb, rgb.flip(0), radius=16, levels=2)
+    assert len(calls) == TM.zncc_calls(2) == 3
+    assert calls[0][0] == 2 * 3 * len(TM.DEFAULT_ROTATIONS)  # lanes × bank
+    assert [c[0] for c in calls[1:]] == [6, 6]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card(cuda_device):
+    """On the card: the CUDA kernel against its plain version (scores to
+    2e-4, argmax on > 99% of pixels, bitwise repeatable, one count a call)."""
+    p1, p2 = (torch.tensor(a, device=cuda_device)
+              for a in _mk_pair(45, 70, 2, -3, 15))
+    n0 = TZ.LAUNCHES["zncc_search"]
+    ku, kv, ks = TZ.zncc_search(p1, p2, 5)
+    again = TZ.zncc_search(p1, p2, 5)
+    pu, pv, ps = TZ.zncc_search_plain(p1, p2, 5)
+    assert all(torch.equal(a, b) for a, b in zip((ku, kv, ks), again))
+    assert (ks - ps).abs().max() < 2e-4
+    assert ((ku == pu) & (kv == pv)).float().mean() > 0.99
+    assert TZ.LAUNCHES["zncc_search"] == n0 + 2

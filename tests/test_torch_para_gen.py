@@ -1,0 +1,322 @@
+"""The port's dataset pipeline (para_gen and its batch tools) against the JAX
+package's, on small numpy-seeded PNG trees.
+
+``main_pipeline`` runs in simple and batched mode on one tree of three
+144×176 frames with two objects (multseg), with a short schedule (JAX
+backend "xla", the port on the CPU). Tolerances: the per-object median flow
+within 0.05 px (the full-solve bound of tests/test_pallas_pcg.py:59),
+warped masks agreeing on > 98% of pixels, and the same all_files.list
+relative to the output root. The host helpers (scan, gates, filter,
+preprocessing, backgrounds) are held equal.
+"""
+
+import os
+import os.path as osp
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from arap_flow_tpu.io import constraints as JC
+from arap_flow_tpu.io import flo as JF
+from arap_flow_tpu.io.image import load_mask
+from arap_flow_tpu.ops.solver import SolverConfig as JConfig
+from arap_flow_tpu.pipeline import para_gen as JP
+from arap_flow_tpu.pipeline import run_arap as JRA
+from arap_flow_tpu.pipeline import run_warp as JRW
+from arap_flow_tpu.pipeline import warp_tool as JW
+from arap_flow_tpu_torch import __main__ as TMain
+from arap_flow_tpu_torch.io import constraints as TC
+from arap_flow_tpu_torch.io.image import save_image
+from arap_flow_tpu_torch.ops.solver import SolverConfig as TConfig
+from arap_flow_tpu_torch.pipeline import para_gen as TP
+from arap_flow_tpu_torch.pipeline import run_arap as TRA
+from arap_flow_tpu_torch.pipeline import run_warp as TRW
+
+torch.set_num_threads(2)
+
+H, W = 144, 176
+SHORT = dict(num_anneal=4, gn_iters=3, max_pcg_iters=120, pcg_iters=120.0)
+# (centre y, x), (radius y, x), (dx, dy) per frame
+OBJECTS = (((40, 48), (30, 40), (3, 2)), ((100, 120), (26, 34), (-2, 3)))
+
+
+def _texture(seed):
+    rng = np.random.default_rng(seed)
+    base = np.kron(rng.uniform(60, 255, (H // 8 + 2, W // 8 + 2, 3)),
+                   np.ones((8, 8, 1)))[:H, :W]
+    detail = np.kron(rng.uniform(-25, 25, (H // 2 + 1, W // 2 + 1, 3)),
+                     np.ones((2, 2, 1)))[:H, :W]
+    return np.clip(base + detail, 0, 255).astype(np.uint8)
+
+
+def _make_tree(root, n_frames=3):
+    """PNG frames and masks (written with the port's codec) of two
+    textured objects translating over a static dark background."""
+    for d in ("orgRGB", "orgMasks"):
+        os.makedirs(osp.join(root, d, "seq0"))
+    bg = _texture(2) // 3
+    texs = [_texture(1), _texture(3)]
+    yy, xx = np.mgrid[0:H, 0:W]
+    for t in range(n_frames):
+        img = bg.copy()
+        mask = np.zeros((H, W), np.uint8)
+        for k, ((cy, cx), (ry, rx), (dx, dy)) in enumerate(OBJECTS):
+            ob = ((yy - cy - dy * t) / ry) ** 2 + ((xx - cx - dx * t) / rx) ** 2 < 1
+            img[ob] = texs[k][yy[ob] - dy * t, xx[ob] - dx * t]
+            mask[ob] = k + 1
+        save_image(osp.join(root, "orgRGB", "seq0", f"{t:05d}.png"), img)
+        save_image(osp.join(root, "orgMasks", "seq0", f"{t:05d}.png"), mask)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both packages' main_pipeline in both modes on one tree."""
+    root = tmp_path_factory.mktemp("pg")
+    inp = str(root / "in")
+    _make_tree(inp)
+    out = {}
+    for mode in ("batched", "simple"):
+        jo, to = str(root / f"j_{mode}"), str(root / f"t_{mode}")
+        out[("jax", mode)] = (jo, JP.main_pipeline(
+            JP.PipelineFlags(input=inp, output=jo, multseg=True, seed=0,
+                             mode=mode),
+            solver_cfg=JConfig(**SHORT, backend="xla")))
+        out[("torch", mode)] = (to, TP.main_pipeline(
+            TP.PipelineFlags(input=inp, output=to, multseg=True, seed=0,
+                             mode=mode, device="cpu"),
+            solver_cfg=TConfig(**SHORT)))
+    return inp, out
+
+
+@pytest.mark.parametrize("mode", ["batched", "simple"])
+def test_main_pipeline_matches_jax(runs, mode):
+    inp, out = runs
+    (jo, jl), (to, tl) = out[("jax", mode)], out[("torch", mode)]
+    assert len(tl) == len(jl) == 2
+    assert [osp.relpath(p, to) for line in tl for p in line.split(" ")] == [
+        osp.relpath(p, jo) for line in jl for p in line.split(" ")]
+    with open(osp.join(to, "all_files.list")) as f:
+        assert f.read().splitlines() == tl
+    for t in range(2):
+        name = f"{t:05d}"
+        tu, tv = JF.flow_read(osp.join(to, "Flow", "seq0", name + ".flo"))
+        ju, jv = JF.flow_read(osp.join(jo, "Flow", "seq0", name + ".flo"))
+        mk = load_mask(osp.join(inp, "orgMasks", "seq0", name + ".png"))
+        for k, (_, _, (dx, dy)) in enumerate(OBJECTS):
+            obj = mk == k + 1
+            for a, b in ((tu, ju), (tv, jv)):
+                assert abs(np.median(a[obj]) - np.median(b[obj])) < 0.05
+            # and the flow is the objects' translation
+            assert abs(np.median(tu[obj]) - dx) < 0.6
+            assert abs(np.median(tv[obj]) - dy) < 0.6
+        wt = load_mask(osp.join(to, "wMasks", "seq0", name + ".png"))
+        wj = load_mask(osp.join(jo, "wMasks", "seq0", name + ".png"))
+        assert (wt == wj).mean() > 0.98
+        for d in ("inpRGB", "inpMasks"):
+            a = np.array(Image.open(osp.join(to, d, "seq0", name + ".png")))
+            b = np.array(Image.open(osp.join(jo, d, "seq0", name + ".png")))
+            np.testing.assert_array_equal(a, b)
+        tc, jc = (set(map(tuple, TC.read_constraint_file(
+            osp.join(o, "tmpCnstr", "seq0", name + ".txt")).tolist()))
+            for o in (to, jo))
+        assert len(tc & jc) >= 0.97 * len(tc | jc)
+
+
+def test_resume_skips_generated_pairs(runs):
+    inp, out = runs
+    to, _ = out[("torch", "batched")]
+    flags = TP.PipelineFlags(input=inp, output=to, resume=True, device="cpu")
+    assert TP.scan_pairs(flags) == []
+
+
+def _scan_tree(root):
+    """Empty files with awkward names: a repeated digit run, missing masks,
+    a missing next frame, two sequences."""
+    names = {
+        "s1": ["001_001.jpg", "001_002.jpg", "001_003.jpg", "001_005.jpg"],
+        "s2": ["frame0009.png", "frame0010.png", "frame0011.png",
+               "frame0012.png", "FRAME0013.JPG"],
+    }
+    for seq, files in names.items():
+        os.makedirs(osp.join(root, "orgRGB", seq))
+        os.makedirs(osp.join(root, "orgMasks", seq))
+        for f in files:
+            open(osp.join(root, "orgRGB", seq, f), "w").close()
+            if f != "frame0011.png":
+                stem = osp.splitext(f)[0]
+                open(osp.join(root, "orgMasks", seq, stem + ".png"), "w").close()
+
+
+@pytest.mark.parametrize("fd,resume,shard", [
+    (1, False, None), (2, False, None), (1, True, None), (1, False, (1, 3)),
+])
+def test_scan_pairs_equal(tmp_path, fd, resume, shard):
+    _scan_tree(str(tmp_path / "in"))
+    out = str(tmp_path / "out")
+    os.makedirs(osp.join(out, "Flow", "s1"))
+    open(osp.join(out, "Flow", "s1", "001_001.flo"), "w").close()
+    kw = dict(input=str(tmp_path / "in"), output=out, fd=fd, resume=resume,
+              shard=shard)
+    jp = JP.scan_pairs(JP.PipelineFlags(**kw))
+    tp = TP.scan_pairs(TP.PipelineFlags(**kw))
+    assert [vars(p) for p in tp] == [vars(p) for p in jp]
+    assert len(jp) > 0
+
+
+def test_mask_gates_equal():
+    rng = np.random.default_rng(0)
+    for n in (0, 5, 10, 11, 40):
+        m1 = np.zeros((20, 20), np.uint8)
+        m1.ravel()[rng.choice(400, n, replace=False)] = rng.integers(1, 3)
+        m2 = np.roll(m1, 3)
+        for gate in ("count", "refsum"):
+            assert TP.has_mask(m1, m2, gate) == JP.has_mask(m1, m2, gate)
+
+
+def test_constraint_filter_and_files_equal(tmp_path):
+    rng = np.random.default_rng(1)
+    m1 = rng.integers(0, 3, (30, 40)).astype(np.uint8)
+    m2 = np.roll(m1, 2, axis=1)
+    matches = rng.integers(-5, 80, (300, 4)).astype(np.int32)
+    matches[::3, 2:] = matches[::3, :2] + rng.integers(-3, 4, (100, 2))
+    for got, ref in zip(TC.filter_matches(matches, m1, m2),
+                        JC.filter_matches(matches, m1, m2)):
+        np.testing.assert_array_equal(got, ref)
+    assert all(
+        TC.valid_constraint(*row, m1, m2) == JC.valid_constraint(*row, m1, m2)
+        for row in matches.tolist())
+    assert TC.MAX_CONSTRAINT_DIST == JC.MAX_CONSTRAINT_DIST
+    kept, _ = TC.filter_matches(matches, m1, m2)
+    TC.write_constraint_file(tmp_path / "t.txt", kept)
+    JC.write_constraint_file(tmp_path / "j.txt", kept)
+    assert (tmp_path / "t.txt").read_bytes() == (tmp_path / "j.txt").read_bytes()
+    (tmp_path / "m.txt").write_text("1 2 3 4 0.5\n7.0 8 9 10\nbad\n")
+    np.testing.assert_array_equal(TC.read_matches(tmp_path / "m.txt"),
+                                  JC.read_matches(tmp_path / "m.txt"))
+    assert TC.filter_matches(matches[:0], m1, m2)[0].shape == (0, 4)
+
+
+@pytest.mark.parametrize("shape,size", [((30, 50), None), ((50, 30), None),
+                                        ((50, 30), (40, 24)),
+                                        ((30, 50), (64, 36))])
+def test_scale_rotate_equal(shape, size):
+    rng = np.random.default_rng(2)
+    im = rng.integers(0, 256, (*shape, 3)).astype(np.uint8)
+    mk = rng.integers(0, 4, shape).astype(np.uint8)
+    jpre, jim, jmk = JP.scale_rotate(Image.fromarray(im), Image.fromarray(mk),
+                                     size)
+    tpre, tim, tmk = TP.scale_rotate(im, mk, size)
+    assert tpre == jpre
+    np.testing.assert_array_equal(tim, np.array(jim))
+    np.testing.assert_array_equal(tmk, np.array(jmk))
+    with pytest.raises(ValueError):
+        TP.scale_rotate(im, mk[:-1], size)
+
+
+def test_backgrounds_equal(tmp_path):
+    """The same seed draws the same backgrounds in the same order."""
+    rng = np.random.default_rng(3)
+    for i, ext in enumerate(("png", "jpg", "png")):
+        Image.fromarray(rng.integers(0, 255, (40 + 9 * i, 70, 3)).astype(
+            np.uint8)).save(tmp_path / f"bg{i}.{ext}")
+    (tmp_path / "broken.png").write_bytes(b"not an image")
+    jpool = JP.BackgroundPool(str(tmp_path), np.random.default_rng(5))
+    tpool = TP.BackgroundPool(str(tmp_path), np.random.default_rng(5))
+    im = rng.integers(0, 255, (36, 60, 3)).astype(np.uint8)
+    mk = (rng.uniform(size=(36, 60)) > 0.5).astype(np.uint8)
+    for _ in range(7):
+        jb, tb = jpool.draw(im.shape), tpool.draw(im.shape)
+        np.testing.assert_array_equal(tb, jb)
+        np.testing.assert_array_equal(TP.add_bg(im, mk, tb),
+                                      JP.add_bg(im, mk, jb))
+    assert sorted(tpool.paths) == sorted(jpool.paths)
+    assert TP.BackgroundPool(None, rng).draw(im.shape) is None
+
+
+def test_parse_args_equal():
+    argv = ["--input", "in/", "--output", "out", "--multseg", "--narap", "3",
+            "--fd", "2", "--mode", "batched", "--seed", "4", "--shard", "1/2",
+            "--match_downscale", "2", "--mask_gate", "refsum", "--resume"]
+    j = vars(JP.parse_args(argv))
+    t = vars(TP.parse_args(argv + ["--device", "cpu"]))
+    assert t.pop("device") == "cpu"
+    assert t == j
+    assert TP.parse_args(["--input", "a", "--output", "b", "--device", "cpu",
+                          "--exec_pack", "d"]).warmup
+    with pytest.raises(SystemExit):
+        TP.parse_args(["--input", "a", "--output", "b", "--fd", "0"])
+
+
+@pytest.mark.parametrize("flags", [dict(mode="sharded"),
+                                   dict(matcher="binary")])
+def test_unported_options_raise(tmp_path, flags):
+    f = TP.PipelineFlags(input=str(tmp_path), output=str(tmp_path / "o"),
+                         device="cpu", **flags)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        TP.main_pipeline(f, solver_cfg=TConfig(**SHORT))
+
+
+def test_cli_registers_pipeline_commands(tmp_path):
+    for name in ("para_gen", "generate", "run_arap", "run_warp"):
+        assert name in TMain.COMMANDS
+    with pytest.raises(NotImplementedError):
+        TMain.main(["para_gen", "--input", str(tmp_path), "--output",
+                    str(tmp_path / "o"), "--mode", "sharded", "--device",
+                    "cpu"])
+
+
+def test_run_warp_and_run_arap_scans_equal(runs, tmp_path):
+    """run_warp's job scan and warps over a para_gen output tree, and
+    run_arap's Sintel list, equal the JAX tools'."""
+    _, out = runs
+    to, _ = out[("torch", "batched")]
+    root = tmp_path / "w"
+    os.makedirs(root)
+    os.symlink(to, root / "fd1")
+    jobs = TRW.scan_jobs(str(root), [1, 2])
+    assert jobs == JRW.scan_jobs(str(root), [1, 2]) and len(jobs) == 2
+    rgb, msk, flo_path, _, _ = jobs[0]
+    assert TMain.main(["run_warp", "--root", str(root), "--fd", "1",
+                       "--device", "cpu"]) == 0
+    jw, jm = JW.warp_image(rgb, msk, flo_path, str(tmp_path / "jw.png"),
+                           str(tmp_path / "jm.png"), backend="device")
+    wm = load_mask(root / "fd1" / "wMasks" / "seq0" / "00000.png")
+    assert (wm == jm).mean() > 0.98
+
+    sintel = tmp_path / "sintel"
+    for sub in ("clean/alley", "masks/clean/alley", "cnstr/clean/alley"):
+        os.makedirs(sintel / sub)
+    for i in range(2):
+        for sub, ext in (("clean/alley", "png"), ("masks/clean/alley", "png"),
+                         ("cnstr/clean/alley", "txt")):
+            (sintel / sub / f"frame_{i:04d}.{ext}").write_text("")
+    tl = TRA.build_sintel_list(str(sintel), ["clean", "final"])
+    jl = JRA.build_sintel_list(str(sintel), ["clean", "final"])
+    assert [vars(f) for f in tl] == [vars(f) for f in jl] and len(tl) == 2
+
+
+def test_failed_chunk_retries_per_pair(runs, tmp_path, monkeypatch):
+    """A chunk whose batched dispatch fails is solved again pair by pair
+    on the crop path, with the batched run's products."""
+    from arap_flow_tpu_torch.pipeline import batch as TB
+
+    def poisoned(self):
+        raise RuntimeError("poisoned chunk")
+
+    monkeypatch.setattr(TB.BatchRunner, "flush", poisoned)
+    inp, out = runs
+    to, ref = out[("torch", "batched")]
+    lines = TP.main_pipeline(
+        TP.PipelineFlags(input=inp, output=str(tmp_path), multseg=True,
+                         seed=0, mode="batched", device="cpu"),
+        solver_cfg=TConfig(**SHORT))
+    assert [osp.relpath(p, str(tmp_path)) for line in lines
+            for p in line.split(" ")] == [osp.relpath(p, to) for line in ref
+                                          for p in line.split(" ")]
+    for t in range(2):
+        name = osp.join("Flow", "seq0", f"{t:05d}.flo")
+        u, v = JF.flow_read(osp.join(str(tmp_path), name))
+        ru, rv = JF.flow_read(osp.join(to, name))
+        assert np.abs(u - ru).max() < 0.05 and np.abs(v - rv).max() < 0.05

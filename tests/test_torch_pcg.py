@@ -1,11 +1,24 @@
 """The port's PCG (plain version and wrapper) agrees with the JAX package's
 XLA PCG and its Pallas kernel (interpret mode) on the same problems.
 
-Tolerances are those of tests/test_pallas_pcg.py: one iteration to
-rtol/atol 1e-4 (same math, different summation order); after 80 iterations
-the trajectories drift apart through float reassociation, so the solutions
-are compared on quality (residual norm within 2× of the reference) and to
-solver accuracy (max |Δδ| < 0.05).
+One iteration is held to rtol/atol 1e-4, the tolerance of
+tests/test_pallas_pcg.py: the math is the same and only the order of
+summation differs.
+
+Many iterations are held to convergence, not to a ratio of residuals. After
+80 CG iterations on the 16×128 problem the residual norm of each of the
+three implementations wanders by several times with the summation order
+(‖b‖ ≈ 1140–1235):
+
+    seed  iters  JAX XLA pcg_solve  JAX Pallas (interpret)  pcg_fixed_plain
+    2     80     0.0286             0.0039                  0.0097
+    3     80     0.0022             0.0056                  0.0121
+    0/2/3 160    0.00044/88/34      0.00048/35/39           0.00058/36/46
+
+so "within 2× of the reference at 80 iterations" fails by chance (the JAX
+package's own two solvers break it). At 160 iterations every solver has
+converged: both residuals ‖b − JtJ·δ‖ must be ≤ 1e-5·‖b‖ (observed
+≤ 7.3e-7·‖b‖, a 13× margin) and max |Δδ| < 0.01 (observed ≤ 4e-4).
 """
 
 import jax.numpy as jnp
@@ -55,6 +68,17 @@ def _resnorm(delta, ops, s, c, jtf):
     return float(jnp.linalg.norm(r))
 
 
+CONVERGED_ITERS = 160
+
+
+def _assert_converged(out, ref, ops, s, c, jtf):
+    """Both solves converged (residual ≤ 1e-5·‖b‖) to the same δ (< 0.01)."""
+    bound = 1e-5 * float(jnp.linalg.norm(jtf))
+    assert _resnorm(out, ops, s, c, jtf) <= bound
+    assert _resnorm(ref, ops, s, c, jtf) <= bound
+    assert np.abs(out - np.asarray(ref)).max() < 0.01
+
+
 @pytest.mark.parametrize("seed", [0, 2])
 def test_plain_matches_xla_pcg(seed):
     ops, s, c, jtf, diag = _problem(seed=seed)
@@ -63,10 +87,9 @@ def test_plain_matches_xla_pcg(seed):
     out1 = TP.pcg_fixed_plain(*args, 1)[0]
     np.testing.assert_allclose(out1.numpy(), np.asarray(ref1), rtol=1e-4,
                                atol=1e-4)
-    ref, _ = JS.pcg_solve(ops, s, c, jtf, diag, 80)
-    out = TP.pcg_fixed_plain(*args, 80)[0].numpy()
-    assert _resnorm(out, ops, s, c, jtf) < 2.0 * _resnorm(ref, ops, s, c, jtf)
-    assert np.abs(out - np.asarray(ref)).max() < 0.05
+    ref, _ = JS.pcg_solve(ops, s, c, jtf, diag, CONVERGED_ITERS)
+    out = TP.pcg_fixed_plain(*args, CONVERGED_ITERS)[0].numpy()
+    _assert_converged(out, ref, ops, s, c, jtf)
 
 
 def test_plain_matches_pallas_kernel_interpret():
@@ -75,10 +98,10 @@ def test_plain_matches_pallas_kernel_interpret():
     ref1, _ = pcg_solve_pallas(ops, s, c, jtf, diag, 1, interpret=True)
     np.testing.assert_allclose(TP.pcg_fixed_plain(*args, 1)[0].numpy(),
                                np.asarray(ref1), rtol=1e-4, atol=1e-4)
-    ref, _ = pcg_solve_pallas(ops, s, c, jtf, diag, 80, interpret=True)
-    out = TP.pcg_fixed_plain(*args, 80)[0].numpy()
-    assert _resnorm(out, ops, s, c, jtf) < 2.0 * _resnorm(ref, ops, s, c, jtf)
-    assert np.abs(out - np.asarray(ref)).max() < 0.05
+    ref, _ = pcg_solve_pallas(ops, s, c, jtf, diag, CONVERGED_ITERS,
+                              interpret=True)
+    out = TP.pcg_fixed_plain(*args, CONVERGED_ITERS)[0].numpy()
+    _assert_converged(out, ref, ops, s, c, jtf)
 
 
 def test_plain_border_poison_inert():
@@ -138,7 +161,7 @@ def cuda_device():
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(cuda_device):
     """On the card: the CUDA kernel against its plain version (1 iteration
-    to 1e-4; 80 iterations to solver accuracy; bitwise repeatable)."""
+    to 1e-4; both converged at 160 iterations; bitwise repeatable)."""
     ops, s, c, jtf, diag = _problem(seed=8)
     _, args = _port_args(ops, s, c, jtf, diag)
     args = [a.to(cuda_device) for a in args]
@@ -146,7 +169,9 @@ def test_kernel_matches_plain_on_card(cuda_device):
     torch.testing.assert_close(TP.pcg_fixed(*args, 1),
                                TP.pcg_fixed_plain(*args, 1),
                                rtol=1e-4, atol=1e-4)
-    k80 = TP.pcg_fixed(*args, 80)
-    assert torch.equal(k80, TP.pcg_fixed(*args, 80))
-    assert (k80 - TP.pcg_fixed_plain(*args, 80)).abs().max() < 0.05
+    k = TP.pcg_fixed(*args, CONVERGED_ITERS)
+    assert torch.equal(k, TP.pcg_fixed(*args, CONVERGED_ITERS))
+    plain = TP.pcg_fixed_plain(*args, CONVERGED_ITERS)
+    _assert_converged(k[0].cpu().numpy(), plain[0].cpu().numpy(), ops, s, c,
+                      jtf)
     assert TP.LAUNCHES["pcg_fixed"] == n0 + 3
