@@ -21,7 +21,7 @@ import time
 _HERE = osp.dirname(osp.abspath(__file__))
 _SRC_DIR = osp.join(_HERE, "csrc")
 BUILD_DIR = osp.join(_HERE, "_build")
-SOURCES = ("pcg.cu", "zncc.cu")
+SOURCES = ("pcg.cu", "zncc.cu", "fused_solver.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -93,8 +93,17 @@ def load(stem: str) -> ctypes.CDLL:
         lib.pcg_fixed_nblk.restype = i
         lib.pcg_error_string.argtypes = [i]
         lib.pcg_error_string.restype = ctypes.c_char_p
-        lib.pcg_fixed_f32.argtypes = [vp] * 12 + [i, i, i, i, vp]
+        lib.pcg_fixed_f32.argtypes = [vp] * 12 + [i, i, i, i, i, vp]
         lib.pcg_fixed_f32.restype = i
+    elif stem == "fused_solver":
+        lib.fused_error_string.argtypes = [i]
+        lib.fused_error_string.restype = ctypes.c_char_p
+        lib.fused_solve_nchunk.argtypes = [i, i]
+        lib.fused_solve_nchunk.restype = i
+        lib.fused_solve_blocks.argtypes = [i, i, i]
+        lib.fused_solve_blocks.restype = i
+        lib.fused_solve_f32.argtypes = [vp] * 14 + [i] * 6 + [vp]
+        lib.fused_solve_f32.restype = i
     elif stem == "zncc":
         lib.zncc_error_string.argtypes = [i]
         lib.zncc_error_string.restype = ctypes.c_char_p

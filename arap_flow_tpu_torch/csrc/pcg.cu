@@ -1,12 +1,17 @@
 // Fixed-count Jacobi-PCG for the ARAP Gauss-Newton system JtJ·δ = b.
 //
-// Replaces arap_flow_tpu/ops/pallas_pcg.py::pcg_pallas (kernel _pcg_kernel):
-// the same function, δ after `iters` iterations of
+// Replaces three TPU kernels of arap_flow_tpu/ops/pallas_pcg.py with one
+// function, δ after `iters` iterations of
 //     r = b, z = pre·r, p = z, δ = 0, rz = Σ r·z
 //     Ap = JtJ·p;  α = rz/Σ p·Ap (0 if Σ p·Ap ≤ 0);  δ += αp;  r −= α·Ap
 //     z = pre·r;  rz' = Σ z·r;  β = rz'/rz (0 if rz ≤ 0);  p = z + βp
 // with the factored 4-neighbour JtJ apply of _jtj_factored, batched over B
-// independent problems with their own weights (wf2, wr2).
+// independent problems with their own weights (wf2, wr2):
+//   * pcg_pallas (kernel _pcg_kernel), one problem: B = 1;
+//   * pcg_pallas_batched (_pcg_kernel_batched), B problems sharing one
+//     weight pair: the per-problem weights here are a superset;
+//   * pcg_pallas_tall / pcg_pallas_batched_tall (the ARAP_TALL_KERNEL
+//     layout): `tall` selects pcg_jtj<true>, described below.
 //
 // What bounds it: device-memory bandwidth. An iteration does ~100 flops per
 // pixel and streams every state plane: the JtJ pass reads p (3 planes) and
@@ -24,7 +29,20 @@
 //     H100 data sheet; a plane is H·W·4 bytes) runs its iteration out of
 //     L2 rather than DRAM.
 // Fusing the three passes, a persistent cooperative kernel and CUDA graphs
-// are later work.
+// are later work (csrc/fused_solver.cu is the persistent form of the whole
+// schedule).
+//
+// The tall layout. On the TPU the state of a problem was one stacked (3H, W)
+// plane, so a JtJ apply took 4 rolls of the stack instead of 12 rolls of its
+// planes; rows that a roll carried across the px/py/pa boundaries landed
+// only where the direction mask is 0. A contiguous (B, 3, H, W) tensor
+// already is (B, 3H, W) in memory, so here the layout is an addressing
+// choice: pcg_jtj<true> reads each neighbour of p at its row in the stack
+// and guards only the stack's outer rows (0 and 3H − 1) and the image's
+// columns; a read across a sub-plane boundary gets the next plane's value,
+// which the zero direction mask multiplies away, as on the TPU. The s, c,
+// vm and fit planes stay (H, W) and keep the full guard. Same arithmetic,
+// same result as pcg_jtj<false> (up to the sign of a zero).
 //
 // Scalars never leave the device and nothing uses atomics. Each pass writes
 // one partial sum per block to a fixed slot; the next pass reduces those
@@ -102,7 +120,9 @@ pcg_init(const float* __restrict__ b, const float* __restrict__ pre,
   if (threadIdx.x == 0) rz_part[blockIdx.y * nblk + blockIdx.x] = total;
 }
 
-// Ap = JtJ·p (factored form); per-block partials of Σ p·Ap.
+// Ap = JtJ·p (factored form); per-block partials of Σ p·Ap. kTall reads
+// the neighbours of p in the stacked (3H, W) plane (see the note above).
+template <bool kTall>
 __global__ void __launch_bounds__(kThreads)
 pcg_jtj(const float* __restrict__ p, const float* __restrict__ s,
         const float* __restrict__ c, const float* __restrict__ vm,
@@ -125,6 +145,15 @@ pcg_jtj(const float* __restrict__ p, const float* __restrict__ s,
   // DIRS = ((0, 1), (0, -1), (1, 0), (-1, 0)) as (dy, dx)
   const int DY[4] = {0, 0, 1, -1};
   const int DX[4] = {1, -1, 0, 0};
+  // neighbour (yy, xx) of plane `ch` of p
+  auto p_at = [&](int ch, int yy, int xx) -> float {
+    if (kTall) {
+      const int row = ch * H + yy;  // row of the stacked (3H, W) plane
+      return (row >= 0 && row < 3 * H && xx >= 0 && xx < W)
+                 ? px[(size_t)row * W + xx] : 0.f;
+    }
+    return load_or_zero(px + (size_t)ch * HW, yy, xx, H, W);
+  };
 
   float acc = 0.f;
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < HW;
@@ -138,9 +167,9 @@ pcg_jtj(const float* __restrict__ p, const float* __restrict__ s,
     for (int k = 0; k < 4; ++k) {
       const int yy = y + DY[k], xx = x + DX[k];
       v[k] = vb[(size_t)k * HW + i];
-      d[k] = v[k] * (pxi - load_or_zero(px, yy, xx, H, W));
-      e[k] = v[k] * (pyi - load_or_zero(py, yy, xx, H, W));
-      paj[k] = load_or_zero(pa, yy, xx, H, W);
+      d[k] = v[k] * (pxi - p_at(0, yy, xx));
+      e[k] = v[k] * (pyi - p_at(1, yy, xx));
+      paj[k] = p_at(2, yy, xx);
       const float sj = load_or_zero(sb, yy, xx, H, W);
       const float cj = load_or_zero(cb, yy, xx, H, W);
       // t(a_j) for a unit direction, sign-folded: (txj, tyj) per DIRS entry
@@ -245,12 +274,14 @@ const char* pcg_error_string(int err) {
 // δ (B,3,H,W) after `iters` PCG iterations. b, pre (B,3,H,W); s, c, fit
 // (B,H,W); vm (B,4,H,W); w (B,2) = (wf2, wr2); r, p, ap (B,3,H,W) and part
 // (3,B,nblk) are scratch. All float32, contiguous, on the stream's device.
-// Enqueues 1 + 3·iters kernels on `stream` without synchronising; returns
-// the cudaError_t of the launches (0 = success).
+// `tall` != 0 runs the JtJ pass in the stacked (3H, W) layout. Enqueues
+// 1 + 3·iters kernels on `stream` without synchronising; returns the
+// cudaError_t of the launches (0 = success).
 int pcg_fixed_f32(const float* b, const float* pre, const float* s,
                   const float* c, const float* vm, const float* fit,
                   const float* w, float* delta, float* r, float* p, float* ap,
-                  float* part, int B, int H, int W, int iters, void* stream) {
+                  float* part, int B, int H, int W, int iters, int tall,
+                  void* stream) {
   if (B <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int HW = H * W;
@@ -267,8 +298,12 @@ int pcg_fixed_f32(const float* b, const float* pre, const float* s,
   for (int it = 0; it < iters; ++it) {
     float* rz_new = rz_part[it & 1];
     const float* rz_old = rz_part[(it + 1) & 1];
-    pcg_jtj<<<grid, kThreads, 0, st>>>(p, s, c, vm, fit, w, ap, pap_part, H,
-                                       W, nblk);
+    if (tall)
+      pcg_jtj<true><<<grid, kThreads, 0, st>>>(p, s, c, vm, fit, w, ap,
+                                               pap_part, H, W, nblk);
+    else
+      pcg_jtj<false><<<grid, kThreads, 0, st>>>(p, s, c, vm, fit, w, ap,
+                                                pap_part, H, W, nblk);
     pcg_update<<<grid, kThreads, 0, st>>>(ap, p, pre, delta, r, pap_part,
                                           rz_old, rz_new, HW, nblk);
     pcg_direction<<<grid, kThreads, 0, st>>>(r, pre, p, rz_old, rz_new, HW,

@@ -1,10 +1,11 @@
 """Fixed-count Jacobi-PCG for the ARAP GN system (ops/pallas_pcg.py of the
-JAX package): the one kernel on the deform path.
+JAX package): the kernel of the per-GN solve and of ``solve_batch``.
 
 Three parts:
 
-- ``pcg_fixed_plain``: the plain torch version, batched over B problems, the
-  same math as the TPU kernel ``_pcg_kernel`` (loop-constant planes of
+- ``pcg_fixed_plain``: the plain torch version, batched over B problems with
+  per-problem weights, the same math as the TPU kernels ``_pcg_kernel`` and
+  ``_pcg_kernel_batched`` (loop-constant planes of
   ``_precompute_const_planes`` + the factored JtJ of ``_jtj_factored``).
 - ``pcg_fixed``: the wrapper. A CPU tensor goes to ``pcg_fixed_plain``; a
   CUDA tensor goes to the hand-written kernel in ``csrc/pcg.cu`` (built on
@@ -12,19 +13,29 @@ Three parts:
 - ``LAUNCHES``: launch counts per kernel; the wrapper adds one each time it
   launches the CUDA kernel (one call runs all ``iters`` iterations).
 
-On a GPU the TPU kernel's tall layout (``ARAP_TALL_KERNEL``) is only an
-index choice, so the variable is accepted and ignored.
+The tall layout (``ARAP_TALL_KERNEL``, the TPU's ``pcg_pallas_tall`` and
+``pcg_pallas_batched_tall``) is a second JtJ pass of the kernel that reads
+the state as one stacked (3H, W) plane per problem; ``tall=None`` reads the
+variable at call time. It is counted as ``pcg_fixed_tall``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
+from ._checks import check_operand, per_problem, weight_pairs
 from .stencil import DIRS, shift
 
-LAUNCHES: dict[str, int] = {"pcg_fixed": 0}
+LAUNCHES: dict[str, int] = {"pcg_fixed": 0, "pcg_fixed_tall": 0}
+
+
+def tall_kernel_enabled() -> bool:
+    """The ARAP_TALL_KERNEL flag (the stacked-plane layout), read at call
+    time: set and not "", "0" or "off"."""
+    return os.environ.get("ARAP_TALL_KERNEL", "") not in ("", "0", "off")
 
 
 def _t_signfold(dy: int, dx: int, sv, cv):
@@ -73,22 +84,15 @@ def _jtj_factored(px, py, pa, s, c, vm, gx, gy, fitw, TxW, TyW, degw, wr2):
     return apx, apy, apa
 
 
-def _weights(wf2, wr2, B: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-problem (B,) float32 weights from scalars or (B,) tensors."""
-    def one(w):
-        return torch.as_tensor(w, dtype=torch.float32, device=device).reshape(
-            -1).expand(B)
-    return one(wf2), one(wr2)
-
-
 def pcg_fixed_plain(b, pre, s, c, vmasks, fitmask, wf2, wr2,
                     iters: int) -> torch.Tensor:
     """δ (B,3,H,W) after `iters` Jacobi-PCG iterations on JtJ δ = b.
 
     b, pre (B,3,H,W); s, c, fitmask (B,H,W); vmasks (B,4,H,W); wf2, wr2
-    scalars or (B,) per-problem weights."""
+    scalars or (B,) per-problem weights. This is the plain version of both
+    layouts of the kernel: in plain torch the tall layout changes nothing."""
     B = b.shape[0]
-    wf2, wr2 = (w[:, None, None] for w in _weights(wf2, wr2, B, b.device))
+    wf2, wr2 = (per_problem(w, B, b.device)[:, None, None] for w in (wf2, wr2))
     vm = list(vmasks.unbind(1))
     gx, gy, fitw, TxW, TyW, degw = _const_planes(s, c, vm, fitmask, wf2, wr2)
     r = b
@@ -115,23 +119,12 @@ def pcg_fixed_plain(b, pre, s, c, vmasks, fitmask, wf2, wr2,
     return delta
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
-    if t.device != device:
-        raise ValueError(f"pcg_fixed: {name} on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"pcg_fixed: {name} is {t.dtype}; the kernel is float32")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"pcg_fixed: {name} has shape {tuple(t.shape)}, "
-                         f"expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"pcg_fixed: {name} is not contiguous")
-
-
-def pcg_fixed(b, pre, s, c, vmasks, fitmask, wf2, wr2,
-              iters: int) -> torch.Tensor:
+def pcg_fixed(b, pre, s, c, vmasks, fitmask, wf2, wr2, iters: int,
+              tall: bool | None = None) -> torch.Tensor:
     """δ (B,3,H,W) after `iters` PCG iterations (see ``pcg_fixed_plain`` for
     the arguments). CPU tensors run the plain version; CUDA tensors run the
-    CUDA kernel on the current stream, without synchronising."""
+    CUDA kernel on the current stream, without synchronising, in the tall
+    layout when `tall` (None: ``tall_kernel_enabled()``)."""
     if b.device.type == "cpu":
         return pcg_fixed_plain(b, pre, s, c, vmasks, fitmask, wf2, wr2, iters)
     if b.device.type != "cuda":
@@ -142,18 +135,18 @@ def pcg_fixed(b, pre, s, c, vmasks, fitmask, wf2, wr2,
     if three != 3:
         raise ValueError(f"pcg_fixed: b has shape {tuple(b.shape)}")
     iters = int(iters)
+    tall = tall_kernel_enabled() if tall is None else bool(tall)
     if iters < 0:
         raise ValueError(f"pcg_fixed: iters = {iters}")
     dev = b.device
-    wf2, wr2 = _weights(wf2, wr2, B, dev)
-    w = torch.stack([wf2, wr2], dim=1).contiguous()
+    w = weight_pairs(wf2, wr2, B, dev)
     for name, t, shape in (
         ("b", b, (B, 3, H, W)), ("pre", pre, (B, 3, H, W)),
         ("s", s, (B, H, W)), ("c", c, (B, H, W)),
         ("vmasks", vmasks, (B, 4, H, W)), ("fitmask", fitmask, (B, H, W)),
         ("w", w, (B, 2)),
     ):
-        _check(name, t, shape, dev)
+        check_operand("pcg_fixed", name, t, dev, shape)
 
     lib = _build.load("pcg")
     delta = torch.empty_like(b)
@@ -165,11 +158,11 @@ def pcg_fixed(b, pre, s, c, vmasks, fitmask, wf2, wr2,
         err = lib.pcg_fixed_f32(
             *(ctypes.c_void_p(t.data_ptr()) for t in (
                 b, pre, s, c, vmasks, fitmask, w, delta, r, p, ap, part)),
-            B, H, W, iters, ctypes.c_void_p(stream),
+            B, H, W, iters, int(tall), ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(
             f"pcg_fixed: CUDA error {err}: {lib.pcg_error_string(err).decode()}"
         )
-    LAUNCHES["pcg_fixed"] += 1
+    LAUNCHES["pcg_fixed_tall" if tall else "pcg_fixed"] += 1
     return delta

@@ -6,17 +6,27 @@ target over ``num_anneal`` steps (α = (i+1)/num_anneal), each step runs
 ``gn_iters`` Gauss-Newton linearisations, and each linearisation runs up to
 ``max_pcg_iters`` Jacobi-PCG iterations.
 
-Backends for the linear solve:
+Backends:
 
 - ``"cuda"``: the fixed-count PCG kernel (``ops.pcg.pcg_fixed``), one call
-  per GN step running every iteration on the device. On CPU tensors the same
-  wrapper runs its plain torch version.
+  per GN step running every iteration on the device, in the tall layout when
+  ``ARAP_TALL_KERNEL`` is set. On CPU tensors the same wrapper runs its
+  plain torch version.
 - ``"plain"``: ``pcg_solve`` in torch, with the optional ζ and rz early
   exits.
 - ``"auto"``: ``"cuda"`` when the operands are CUDA tensors and both
   tolerances are 0, else ``"plain"``. So the parity schedule always runs the
   kernel on a GPU, and a schedule with a tolerance (``--schedule fast``)
   runs the early-exit plain PCG, as the JAX package runs XLA there.
+- ``"fused"`` (opt-in, as in the JAX package): the whole schedule in one
+  call of ``ops.fused_solver.anneal_solve_fused`` (one cooperative kernel
+  launch on CUDA tensors, its plain version on CPU tensors). Only float32
+  operands with no tolerance and a uniform PCG budget are eligible
+  (``fused_eligible``); the rest resolve as ``"auto"`` does.
+
+The route is taken in ``anneal_solve_stats``, which every solve goes
+through: ``solve``, ``solve_stats``, ``solve_batch`` and the callers in
+models/arap.py (simple, crop and canvas paths) all honour it.
 
 All functions take a leading batch dimension or none (see ops/energy.py).
 """
@@ -37,7 +47,7 @@ from .energy import (
     trig,
 )
 
-BACKENDS = ("auto", "plain", "cuda")
+BACKENDS = ("auto", "plain", "cuda", "fused")
 
 
 class SolverConfig(NamedTuple):
@@ -57,22 +67,41 @@ class SolverConfig(NamedTuple):
     rz_tolerance: float = 0.0
     pcg_iters_early: float = 0.0
     anneal_split: float = 0.0
-    backend: str = "auto"  # "auto" | "plain" | "cuda"
+    backend: str = "auto"  # "auto" | "plain" | "cuda" | "fused"
 
     def resolve(self, device) -> "SolverConfig":
-        """Resolve backend='auto' for operands on `device`."""
+        """Resolve backend='auto', and 'fused' on a schedule the fused
+        kernel does not run, for operands on `device`."""
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; one of {BACKENDS}")
-        if self.backend != "auto":
+        if self.backend == "fused" and fused_eligible(self):
+            return self
+        if self.backend not in ("auto", "fused"):
             return self
         on_cuda = torch.device(device).type == "cuda"
         no_tols = float(self.q_tolerance) == 0.0 and float(self.rz_tolerance) == 0.0
         return self._replace(backend="cuda" if on_cuda and no_tols else "plain")
 
 
+def fused_eligible(cfg: SolverConfig, dtype=torch.float32) -> bool:
+    """Whether a solve runs the whole-schedule fused kernel: backend='fused'
+    (an explicit opt-in), no early-exit tolerance (the kernel runs a fixed
+    budget), no non-uniform early/late schedule (the kernel runs one budget
+    for every anneal step, which also keeps solve_stats' closed-form count
+    exact) and float32 operands. The JAX package's VMEM gate (fits_vmem) has
+    no counterpart: the cooperative kernel keeps its state in device memory."""
+    return (
+        cfg.backend == "fused"
+        and float(cfg.q_tolerance) == 0.0 and float(cfg.rz_tolerance) == 0.0
+        and not (float(cfg.pcg_iters_early) > 0.0
+                 and float(cfg.anneal_split) > 0.0)
+        and dtype == torch.float32
+    )
+
+
 def resolve_for(ops: ArapOperands, cfg: SolverConfig) -> SolverConfig:
     """resolve() for the operands' device, plus dtype routing: float64
-    operands run the plain backend (the kernel is float32 only)."""
+    operands run the plain backend (the kernels are float32 only)."""
     cfg = cfg.resolve(ops.mask.device)
     if ops.mask.dtype != torch.float32 and cfg.backend != "plain":
         cfg = cfg._replace(backend="plain")
@@ -193,6 +222,14 @@ def anneal_solve_stats(ops: ArapOperands, cfg: SolverConfig):
     """Full annealed solve. Returns (x (..., 3, H, W), total PCG iterations
     per problem)."""
     cfg = resolve_for(ops, cfg)
+    if cfg.backend == "fused":
+        from .fused_solver import anneal_solve_fused, schedule
+
+        x = anneal_solve_fused(ops, cfg)
+        num_anneal, gn_iters, pcg_iters = schedule(cfg)
+        return x, torch.full(x.shape[:-3], float(num_anneal * gn_iters
+                                                 * pcg_iters),
+                             dtype=x.dtype, device=x.device)
     x = init_state(ops)
     tot = torch.zeros(x.shape[:-3], dtype=x.dtype, device=x.device)
     for i in range(cfg.num_anneal):
@@ -226,3 +263,23 @@ def solve_stats(ops: ArapOperands, cfg: SolverConfig):
     """Like solve() but also returns the PCG iterations run per problem."""
     x, iters = anneal_solve_stats(ops, cfg)
     return x, flow_from_state(x, ops), iters
+
+
+def solve_batch(ops: ArapOperands, cfg: SolverConfig):
+    """Batched solve over the leading axis of every operand leaf; returns
+    (states (B, 3, H, W), flows (B, 2, H, W)).
+
+    One GN chain for the whole batch, as the JAX package's kernel route
+    (_solve_batch_kernel_impl): on the "cuda" backend each GN step is one
+    ``pcg_fixed`` call over all B problems (tall when ARAP_TALL_KERNEL says
+    so), each anneal step runs its early or late budget, and
+    ``solve_stats`` counts gn_iters · Σ_steps min(max_pcg_iters, budget)
+    per problem. The kernel takes per-problem weights, so a batch with
+    non-uniform weights takes the same route and still equals its problems
+    solved one at a time (the JAX package's uniform_weights gate has
+    nothing to protect), and the TPU kernel's VMEM gate has no counterpart:
+    the batch's state lives in device memory."""
+    if ops.mask.dim() != 3:
+        raise ValueError(f"solve_batch: operands of shape "
+                         f"{tuple(ops.mask.shape)}, expected (B, H, W)")
+    return solve(ops, cfg)

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ._checks import check_operand
+
 LAUNCHES: dict[str, int] = {"zncc_search": 0}
 
 EPS = 1e-4
@@ -119,16 +121,6 @@ def zncc_search_plain(p1: torch.Tensor, p2: torch.Tensor, radius: int,
     return tuple(t[0] for t in out) if single else out
 
 
-def _check(name: str, t: torch.Tensor, device) -> None:
-    if t.device != device:
-        raise ValueError(f"zncc_search: {name} on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"zncc_search: {name} is {t.dtype}; the kernel is "
-                        "float32")
-    if not t.is_contiguous():
-        raise ValueError(f"zncc_search: {name} is not contiguous")
-
-
 def zncc_search(p1: torch.Tensor, p2: torch.Tensor, radius: int,
                 patch: int = 12):
     """Fused z-score + ZNCC search (see ``zncc_search_plain`` for the
@@ -144,8 +136,8 @@ def zncc_search(p1: torch.Tensor, p2: torch.Tensor, radius: int,
 
     b1, b2, single = _as_batch(p1, p2)
     dev = p1.device
-    _check("p1", b1, dev)
-    _check("p2", b2, dev)
+    check_operand("zncc_search", "p1", b1, dev)
+    check_operand("zncc_search", "p2", b2, dev)
     N1, H, W = b1.shape
     N2 = b2.shape[0]
     lib = _build.load("zncc")

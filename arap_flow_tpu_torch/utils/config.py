@@ -2,13 +2,15 @@
 
 Env vars (``ARAP_*``, applied over the keyword overrides; env wins):
 - ARAP_SCHEDULE       parity | fast           (solver schedule preset)
-- ARAP_BACKEND        auto | plain | cuda     (PCG backend)
+- ARAP_BACKEND        auto | plain | cuda     (PCG backend; "fused" is a
+                                               SolverConfig opt-in only, as
+                                               in the JAX package)
 - ARAP_RASTER         device | host           (rasterizer; host is not ported)
 - ARAP_MATCHER        native | binary | file  (correspondence source)
 - ARAP_W_FIT / ARAP_W_REG                      (energy weights)
 
-ARAP_TALL_KERNEL, a layout probe of the TPU kernels, is accepted and
-ignored: on a GPU the layout is only an index choice.
+ARAP_TALL_KERNEL is read by the PCG kernel's wrapper at each call
+(ops/pcg.tall_kernel_enabled): set, it runs the stacked-plane layout.
 """
 
 from __future__ import annotations
@@ -19,7 +21,10 @@ from dataclasses import dataclass, field
 import torch
 
 from ..ops.energy import ArapWeights
-from ..ops.solver import BACKENDS, SolverConfig
+from ..ops.solver import SolverConfig
+
+# the backends ARAP_BACKEND selects
+ENV_BACKENDS = ("auto", "plain", "cuda")
 
 
 @dataclass
@@ -43,7 +48,7 @@ class FrameworkConfig:
                 rz_tolerance=0.0,
             )
         backend = os.environ.get("ARAP_BACKEND")
-        if backend in BACKENDS:
+        if backend in ENV_BACKENDS:
             cfg.solver = cfg.solver._replace(backend=backend)
         raster = os.environ.get("ARAP_RASTER")
         if raster in ("device", "host"):

@@ -6,13 +6,21 @@ Phases, each reported on its own line; any failure exits non-zero:
 
 0. environment: card name and power limit, torch and CUDA versions; TF32
    is switched off for matmuls and cuDNN.
-1. build: compiles the CUDA kernels from ``arap_flow_tpu_torch/csrc``, one
-   nvcc process per source, all started together.
-2. PCG kernel vs plain: ``pcg_fixed`` (CUDA) against ``pcg_fixed_plain`` on
-   the same numpy-seeded problems, on the card: 1 iteration to rtol/atol
-   1e-4; at 160 iterations both converged (‖b − JtJ·δ‖ ≤ 1e-5·‖b‖ for every
-   problem) with max |Δδ| < 0.01; two kernel runs bitwise equal; µs per
-   iteration and ms per 400-iteration call of both.
+1. build: compiles the three CUDA libraries from ``arap_flow_tpu_torch/csrc``
+   (pcg, zncc, fused_solver), one nvcc process per source, all started
+   together, and loads them.
+2. PCG kernel vs plain: ``pcg_fixed`` (CUDA) in both layouts, standard and
+   tall, against ``pcg_fixed_plain`` on the same numpy-seeded problems, on
+   the card: 1 iteration to rtol/atol 1e-4; at 160 iterations both
+   converged (‖b − JtJ·δ‖ ≤ 1e-5·‖b‖ for every problem) with max |Δδ| <
+   0.01; two kernel runs bitwise equal; the tall layout within 1e-5 of the
+   standard one; µs per iteration and ms per 400-iteration call.
+2b. solve_batch: 4 numpy-seeded 192×256 problems (the pipeline's chunk
+   shape) at 3×2×60 against per-problem solves (1e-4) and against the
+   plain version on the CPU (max |Δflow| < 0.05 px, median < 0.005 px),
+   with the closed-form iteration count; then at 19×8×400 in the standard
+   layout and under ARAP_TALL_KERNEL=1, each run's launches counted, the
+   tall flows within 1e-5 of the standard ones.
 3. deform path: one 854×480 pair with two segments through the crop path
    (make_task -> BatchRunner -> solve_and_raster_canvas) with the full
    19×8×400 schedule on CUDA; flows written and read back as .flo, checked
@@ -32,6 +40,18 @@ Phases, each reported on its own line; any failure exits non-zero:
    --profile, one more run under torch.profiler prints the device time by
    kernel and the device's busy share, and a profiled matcher call on the
    same 4 pairs prints the matcher's own device time.
+6. fused kernel vs plain: ``anneal_solve_fused`` (one cooperative launch a
+   solve) against ``anneal_solve_fused_plain`` at 16×128 (3×2×60), B=1
+   192×384 and B=4 192×256 (2×2×40): 1×1×1 within 1e-4 and 1×1×3 within
+   0.01; over the solve region median |Δx| < 1e-3 and max |Δx| < 0.01;
+   every problem's final cost within 5%; two kernel runs bitwise equal; ms
+   a call of both, and the kernel's ms a 19×8×400 solve beside 152 per-GN
+   PCG calls.
+6b. fused deform pair: phase 3's pair again with SolverConfig(backend=
+   "fused"): median rigid EPE < 1 px and median |flow − phase 3's flow| <
+   0.05 px per segment; one fused launch per solve chunk and no PCG
+   launch; cold and warm seconds. With --profile, one more warm run under
+   torch.profiler prints its device time by kernel and busy share.
 
 The last line is the JSON device record; the line before it lists the
 kernels with their launch counts, errors, times and bounds.
@@ -64,6 +84,23 @@ F32_OPS_PER_S = 67e12
 PCG_OPS_PER_PIXEL_ITER = 95
 # Inputs b, pre (3 planes each), s, c, fit, 4 direction masks; output δ (3).
 PCG_PLANES = 13 + 3
+# The fused whole-schedule kernel (csrc/fused_solver.cu) solves the same
+# system, so its bound counts the fewest operations the schedule needs, not
+# the unfactored JtJ that the kernel recomputes each iteration: a PCG
+# iteration is PCG_OPS_PER_PIXEL_ITER, and each GN step adds the
+# linearisation and the loop-constant planes once. The linearisation: sin
+# and cos of one angle 26 (a shared range reduction: the multiply by 2/π,
+# the rounding and three fused multiply-adds, 8; the square of the reduced
+# angle 1; the sine and cosine polynomials, four fused multiply-adds each,
+# 16; a sign 1), the annealed constraint 6, the fit terms 5, per direction
+# 20 (residuals 8, gradient terms 12) so 80, z = pre·r and r·z 9, x += δ 3.
+# The loop-constant planes of the factored JtJ: the 4 directions' gradient
+# weights 12, the fit weight 1, the two rotation sums 10, the degree 4.
+FUSED_OPS_PER_PIXEL_GN = 26 + 6 + 5 + 80 + 9 + 3 + 27
+# Once a solve: the degree 3 and the two preconditioner planes 9.
+FUSED_OPS_SETUP = 12
+# Inputs vm (4 planes), fit, con_src (2), con_tgt (2), grid (2); output x (3).
+FUSED_PLANES = 11 + 3
 # ZNCC search per offset and pixel: the product, a running 12×12 box sum
 # (an add and a subtract along each axis) and the running-max compare; the
 # z-score per pixel: running sums of p and p² (9) and the mean, variance
@@ -97,10 +134,10 @@ def phase_build():
     from arap_flow_tpu_torch import _build
 
     paths, seconds = _build.build()
-    _build.load("pcg")
-    _build.load("zncc")
-    say(f"phase 1 build: {[os.path.relpath(p, ROOT) for p in paths]} in "
-        f"{seconds:.2f} s")
+    for stem in ("pcg", "zncc", "fused_solver"):
+        _build.load(stem)
+    say(f"phase 1 build: {len(paths)} libraries "
+        f"{[os.path.relpath(p, ROOT) for p in paths]} in {seconds:.2f} s")
     for path in paths:
         log = path[: -len(".so")] + ".log"
         if os.path.exists(log):
@@ -121,6 +158,14 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 def pcg_bound(B: int, H: int, W: int, iters: int = 400) -> tuple[float, str]:
     px = B * H * W
     return bound(4.0 * px * PCG_PLANES, float(px) * iters * PCG_OPS_PER_PIXEL_ITER)
+
+
+def fused_bound(B: int, H: int, W: int, num_anneal: int, gn_iters: int,
+                pcg_iters: int) -> tuple[float, str]:
+    px = B * H * W
+    per_px = FUSED_OPS_SETUP + num_anneal * gn_iters * (
+        FUSED_OPS_PER_PIXEL_GN + pcg_iters * PCG_OPS_PER_PIXEL_ITER)
+    return bound(4.0 * px * FUSED_PLANES, float(px) * per_px)
 
 
 def zncc_bound(N1: int, N2: int, H: int, W: int, r: int) -> tuple[float, str]:
@@ -208,43 +253,69 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def check_pcg_layout(ops, args, tall: bool, plain1, plain_n, shape):
+    """One layout of the kernel against the plain version: 1 iteration to
+    1e-4; converged at CONVERGED_ITERS with max |Δδ| < 0.01; bitwise
+    repeatable. Returns (1-iteration δ, converged δ, 1-iteration max |Δ|,
+    residual/‖b‖, converged max |Δ|)."""
+    import torch
+
+    from arap_flow_tpu_torch.ops.pcg import pcg_fixed
+
+    B, H, W = shape
+    k1 = pcg_fixed(*args, 1, tall=tall)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k1, plain1, rtol=1e-4, atol=1e-4)
+    n = CONVERGED_ITERS
+    kn = pcg_fixed(*args, n, tall=tall)
+    knb = pcg_fixed(*args, n, tall=tall)
+    torch.cuda.synchronize()
+    if not torch.equal(kn, knb):
+        raise AssertionError(f"kernel (tall={tall}) not bitwise repeatable "
+                             f"at {B}x{H}x{W}")
+    res = max(relative_residuals(ops, args, kn))
+    res_p = max(relative_residuals(ops, args, plain_n))
+    dn = float((kn - plain_n).abs().max())
+    if not (res <= 1e-5 and res_p <= 1e-5 and dn < 0.01):
+        raise AssertionError(
+            f"{n} iterations (tall={tall}) at {B}x{H}x{W}: residual/|b| "
+            f"{res} (plain {res_p}), max |d| {dn}")
+    return k1, kn, float((k1 - plain1).abs().max()), res, dn
+
+
 def phase_kernel(shapes, timed_shapes, call_shapes):
-    """Kernel vs plain on the card at each (B, H, W). Returns the largest
-    1-iteration |difference| and, for each of `call_shapes` (the main
-    path's), the median ms of one 400-iteration call of kernel and plain."""
+    """Kernel in both layouts vs plain on the card at each (B, H, W).
+    Returns the largest 1-iteration |difference| of each layout and, for
+    each of `call_shapes` (the main path's), the median ms of one
+    400-iteration call of the kernel, the plain version and the tall
+    kernel."""
     import torch
 
     from arap_flow_tpu_torch.ops.pcg import pcg_fixed, pcg_fixed_plain
 
     dev = torch.device("cuda", 0)
-    max_err = 0.0
+    max_err = max_err_tall = 0.0
     for B, H, W in shapes:
         ops, args = pcg_problem(B, H, W, seed=10 * H + W, device=dev)
-        k1 = pcg_fixed(*args, 1)
         p1 = pcg_fixed_plain(*args, 1)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(k1, p1, rtol=1e-4, atol=1e-4)
-        err1 = float((k1 - p1).abs().max())
-        max_err = max(max_err, err1)
-        n = CONVERGED_ITERS
-        kn = pcg_fixed(*args, n)
-        pn = pcg_fixed_plain(*args, n)
-        knb = pcg_fixed(*args, n)
-        torch.cuda.synchronize()
-        if not torch.equal(kn, knb):
-            raise AssertionError(f"kernel not bitwise repeatable at {B}x{H}x{W}")
-        res_k = max(relative_residuals(ops, args, kn))
-        res_p = max(relative_residuals(ops, args, pn))
-        dn = float((kn - pn).abs().max())
-        if not (res_k <= 1e-5 and res_p <= 1e-5 and dn < 0.01):
-            raise AssertionError(
-                f"{n} iterations at {B}x{H}x{W}: residual/|b| {res_k} "
-                f"(plain {res_p}), max |d| {dn}")
+        pn = pcg_fixed_plain(*args, CONVERGED_ITERS)
+        k1, kn, err1, res_k, dn = check_pcg_layout(ops, args, False, p1, pn,
+                                                   (B, H, W))
+        t1, tn, terr1, res_t, dtn = check_pcg_layout(ops, args, True, p1, pn,
+                                                     (B, H, W))
+        d_std = max(float((t1 - k1).abs().max()), float((tn - kn).abs().max()))
+        if not d_std <= 1e-5:
+            raise AssertionError(f"tall and standard layouts differ by "
+                                 f"{d_std} at {B}x{H}x{W}")
+        max_err, max_err_tall = max(max_err, err1), max(max_err_tall, terr1)
         line = (f"phase 2 kernel vs plain B={B} {H}x{W}: 1-iter max|d| "
-                f"{err1:.3g}; {n}-iter residual/|b| {res_k:.3g} (plain "
-                f"{res_p:.3g}), max|d| {dn:.3g}; bitwise repeat ok")
+                f"{err1:.3g} (tall {terr1:.3g}); {CONVERGED_ITERS}-iter "
+                f"residual/|b| {res_k:.3g} (tall {res_t:.3g}), max|d| "
+                f"{dn:.3g} (tall {dtn:.3g}); tall vs standard max|d| "
+                f"{d_std:.3g}; bitwise repeat ok")
         if (B, H, W) in timed_shapes:
-            us_k = cuda_ms(lambda: pcg_fixed(*args, 200)) * 1000.0 / 200
+            us_k = cuda_ms(lambda: pcg_fixed(*args, 200, tall=False)
+                           ) * 1000.0 / 200
             us_p = cuda_ms(lambda: pcg_fixed_plain(*args, 20),
                            reps=3) * 1000.0 / 20
             line += f"; us/iter kernel {us_k:.2f}, plain {us_p:.2f}"
@@ -252,14 +323,140 @@ def phase_kernel(shapes, timed_shapes, call_shapes):
     call_ms = {}
     for B, H, W in call_shapes:
         _, args = pcg_problem(B, H, W, seed=7, device=dev)
-        ms = cuda_ms(lambda: pcg_fixed(*args, 400))
+        ms = cuda_ms(lambda: pcg_fixed(*args, 400, tall=False))
+        tall_ms = cuda_ms(lambda: pcg_fixed(*args, 400, tall=True))
         plain_ms = cuda_ms(lambda: pcg_fixed_plain(*args, 400), reps=3)
-        call_ms[(B, H, W)] = (ms, plain_ms)
+        call_ms[(B, H, W)] = (ms, plain_ms, tall_ms)
         bms, by = pcg_bound(B, H, W)
         say(f"phase 2 one 400-iteration call at B={B} {H}x{W}: kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms "
-            f"({by})")
-    return max_err, call_ms
+            f"{ms:.3f} ms, tall {tall_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bms:.4f} ms ({by})")
+    return max_err, max_err_tall, call_ms
+
+
+def stack_operands(probs):
+    from arap_flow_tpu_torch.ops.energy import ArapOperands
+    import torch
+
+    return ArapOperands(**{f: torch.stack([getattr(o, f) for o in probs])
+                           for f in vars(probs[0])})
+
+
+def segment_operands(B: int, H: int, W: int, seed: int, device):
+    """B numpy-seeded segment problems on an H×W bucket: an elliptical
+    object whose constraint grid (every 8 px) moves by a random rigid
+    motion, with border pins. Returns the per-problem operands and their
+    stack."""
+    from arap_flow_tpu_torch.io.constraints import add_border_pins
+    from arap_flow_tpu_torch.ops import energy as E
+
+    probs = []
+    yy, xx = np.mgrid[0:H, 0:W]
+    for k in range(B):
+        rng = np.random.default_rng(seed + k)
+        cy, cx = H / 2 + rng.uniform(-4, 4), W / 2 + rng.uniform(-4, 4)
+        ell = (((yy - cy) / (0.38 * H)) ** 2
+               + ((xx - cx) / (0.38 * W)) ** 2) < 1.0
+        dx, dy = rng.uniform(-6, 6, 2)
+        th = rng.uniform(-0.1, 0.1)
+        ys, xs = np.mgrid[0:H:8, 0:W:8]
+        sel = ell[::8, ::8]
+        sx, sy = xs[sel], ys[sel]
+        xr = np.cos(th) * (sx - cx) - np.sin(th) * (sy - cy) + cx + dx
+        yr = np.sin(th) * (sx - cx) + np.cos(th) * (sy - cy) + cy + dy
+        cons = np.stack([sx, sy, np.round(xr), np.round(yr)], 1).astype(
+            np.int32)
+        keep = ((cons[:, 2] >= 0) & (cons[:, 2] < W) & (cons[:, 3] >= 0)
+                & (cons[:, 3] < H))
+        probs.append(E.build_operands(
+            np.where(ell, 0, 255).astype(np.uint8),
+            add_border_pins(cons[keep], W, H), device=device))
+    return probs, stack_operands(probs)
+
+
+def zero_counts() -> None:
+    from arap_flow_tpu_torch.ops import fused_solver, pcg, zncc
+
+    for counts in (pcg.LAUNCHES, zncc.LAUNCHES, fused_solver.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def read_counts() -> dict:
+    from arap_flow_tpu_torch.ops import fused_solver, pcg, zncc
+
+    return {**pcg.LAUNCHES, **zncc.LAUNCHES, **fused_solver.LAUNCHES}
+
+
+def phase_solve_batch(smi: str) -> int:
+    """solve_batch on the pipeline's chunk shape. Returns the tall kernel's
+    launches in the 19×8×400 run under ARAP_TALL_KERNEL=1."""
+    import torch
+
+    from arap_flow_tpu_torch.ops import solver as S
+
+    dev = torch.device("cuda", 0)
+    B, H, W = PIPE_PCG_SHAPE
+    cpu_probs, cpu_batch = segment_operands(B, H, W, seed=300, device="cpu")
+    probs, batch = segment_operands(B, H, W, seed=300, device=dev)
+    short = S.SolverConfig(num_anneal=3, gn_iters=2, max_pcg_iters=60,
+                           pcg_iters=60.0)
+
+    def per_problem_gap(flows, cfg):
+        return max(float((flows[k] - S.solve(o, cfg)[1]).abs().max())
+                   for k, o in enumerate(probs))
+
+    _, f_short = S.solve_batch(batch, short)
+    # the kernel route's plain version: backend "cuda" on CPU tensors
+    _, f_cpu = S.solve_batch(cpu_batch, short._replace(backend="cuda"))
+    d = (f_short.cpu() - f_cpu).abs()
+    gap = per_problem_gap(f_short, short)
+    counts = []
+    for cfg in (short, short._replace(num_anneal=4, gn_iters=1,
+                                      pcg_iters_early=20.0, anneal_split=2.0)):
+        _, _, n = S.solve_stats(batch, cfg)
+        closed = cfg.gn_iters * sum(
+            min(cfg.max_pcg_iters, cfg.pcg_iters_early
+                if cfg.pcg_iters_early > 0 and i < cfg.anneal_split
+                else cfg.pcg_iters) for i in range(cfg.num_anneal))
+        counts.append((float(n.min()), float(n.max()), closed))
+    line = (f"phase 2b solve_batch B={B} {H}x{W} 3x2x60: max|flow - per-"
+            f"problem solve| {gap:.3g}; vs the plain version on the CPU max "
+            f"{float(d.max()):.4g} px, median {float(d.median()):.4g} px; "
+            f"iterations (min, max, closed form) {counts}")
+    say(line)
+    if not (gap <= 1e-4 and float(d.max()) < 0.05
+            and float(d.median()) < 0.005
+            and all(lo == hi == c for lo, hi, c in counts)):
+        raise AssertionError(line)
+
+    full = S.SolverConfig()
+    steps = full.num_anneal * full.gn_iters
+    runs = {}
+    for tall in (False, True):
+        if tall:
+            os.environ["ARAP_TALL_KERNEL"] = "1"
+        zero_counts()
+        t0 = time.perf_counter()
+        _, flows = S.solve_batch(batch, full)
+        torch.cuda.synchronize()
+        runs[tall] = (flows, time.perf_counter() - t0, read_counts())
+        os.environ.pop("ARAP_TALL_KERNEL", None)
+    (f_std, s_std, n_std), (f_tall, s_tall, n_tall) = runs[False], runs[True]
+    gap = per_problem_gap(f_std, full)
+    d_tall = float((f_tall - f_std).abs().max())
+    line = (f"phase 2b solve_batch B={B} {H}x{W} 19x8x400: {s_std:.3f} s, "
+            f"launches pcg_fixed {n_std['pcg_fixed']} pcg_fixed_tall "
+            f"{n_std['pcg_fixed_tall']}; ARAP_TALL_KERNEL=1 {s_tall:.3f} s, "
+            f"launches pcg_fixed {n_tall['pcg_fixed']} pcg_fixed_tall "
+            f"{n_tall['pcg_fixed_tall']}; max|flow - per-problem solve| "
+            f"{gap:.3g}; max|tall flow - standard flow| {d_tall:.3g} ({smi})")
+    say(line)
+    if not ((n_std["pcg_fixed"], n_std["pcg_fixed_tall"]) == (steps, 0)
+            and (n_tall["pcg_fixed"], n_tall["pcg_fixed_tall"]) == (0, steps)
+            and gap <= 1e-4 and d_tall <= 1e-5):
+        raise AssertionError(line)
+    return n_tall["pcg_fixed_tall"]
 
 
 # The bench's frame pair (bench.py): 854×480, two elliptical segments.
@@ -355,14 +552,14 @@ def run_pair(probs, tasks, cfg, device):
 
 
 def phase_main_path(smi, probs, tasks, calls, call_ms):
-    """Full 19×8×400 schedule on CUDA through the crop path; returns the
-    kernel launch counts of that run. `calls` are the kernel call shapes of
-    one GN step (solve_calls), `call_ms` the kernel's measured ms per
-    400-iteration call at each."""
+    """Full 19×8×400 schedule on CUDA through the crop path. Returns the
+    kernel launch counts of that run, the segments' flows and the pair's
+    cold and warm seconds. `calls` are the kernel call shapes of one GN step
+    (solve_calls), `call_ms` the kernel's measured ms per 400-iteration call
+    at each."""
     import torch
 
     from arap_flow_tpu_torch.io.flo import flow_read, flow_write
-    from arap_flow_tpu_torch.ops import pcg
     from arap_flow_tpu_torch.ops.solver import SolverConfig
 
     dev = torch.device("cuda", 0)
@@ -371,16 +568,16 @@ def phase_main_path(smi, probs, tasks, calls, call_ms):
         f"{[(t.bucket, t.canvas, t.transposed) if t else None for t in tasks]}"
         f"; kernel calls per GN step {calls}")
 
-    for name in pcg.LAUNCHES:
-        pcg.LAUNCHES[name] = 0
+    zero_counts()
     t0 = time.perf_counter()
     out, _ = run_pair(probs, tasks, cfg, dev)
     cold = time.perf_counter() - t0
-    launches = dict(pcg.LAUNCHES)
+    launches = read_counts()
     expect = len(calls) * cfg.num_anneal * cfg.gn_iters
-    if launches["pcg_fixed"] != expect:
-        raise AssertionError(f"pcg_fixed launched {launches['pcg_fixed']} "
-                             f"times, expected {expect}")
+    if (launches["pcg_fixed"], launches["pcg_fixed_tall"],
+            launches["anneal_solve_fused"]) != (expect, 0, 0):
+        raise AssertionError(f"launches {launches}, expected pcg_fixed "
+                             f"{expect} and no other")
 
     with tempfile.TemporaryDirectory() as tmp:
         for j, (rgb, mask, cons, motion) in enumerate(probs):
@@ -414,7 +611,8 @@ def phase_main_path(smi, probs, tasks, calls, call_ms):
     say(f"phase 3 PCG kernel time in the pair (GN steps x measured ms per "
         f"call): {pcg_s:.3f} s of the warm {warm:.3f} s")
     say("phase 3 warm-run stages:\n" + timer.report())
-    return launches
+    return launches, {j: out[(0, j)].flow for j in range(len(probs))}, (
+        cold, warm)
 
 
 def small_reference_check():
@@ -692,11 +890,12 @@ def device_time_report(prof, wall_s: float, label: str) -> None:
     total_us = sum(us for us, _ in rows.values())
     if total_us <= 0:
         raise AssertionError(f"{label}: the profiler saw no device time")
-    groups = {"pcg kernels": 0.0, "zncc kernels": 0.0, "torch ops": 0.0}
+    groups = {"pcg kernels": 0.0, "zncc kernels": 0.0, "fused kernel": 0.0,
+              "torch ops": 0.0}
     for name, (us, _) in rows.items():
         key = ("pcg kernels" if "pcg_" in name else "zncc kernels"
                if ("zscore_kernel" in name or "search_kernel" in name)
-               else "torch ops")
+               else "fused kernel" if "fused_solve" in name else "torch ops")
         groups[key] += us
     say(f"{label}: device busy {total_us / 1e6:.4f} s of {wall_s:.4f} s "
         f"wall under the profiler ({100 * total_us / 1e6 / wall_s:.1f}%); "
@@ -737,7 +936,6 @@ def profile_pipeline(inp: str, out: str, cfg) -> None:
 
 def phase_pipeline(smi: str, profiled: bool = False):
     """The dataset pipeline on the card; returns its kernel launches."""
-    from arap_flow_tpu_torch.ops import pcg, zncc
     from arap_flow_tpu_torch.ops.energy import ArapWeights
     from arap_flow_tpu_torch.ops.solver import SolverConfig
     from arap_flow_tpu_torch.pipeline import para_gen
@@ -748,29 +946,28 @@ def phase_pipeline(smi: str, profiled: bool = False):
     with tempfile.TemporaryDirectory() as tmp:
         inp = os.path.join(tmp, "in")
         make_pipeline_tree(inp)
-        for counts in (pcg.LAUNCHES, zncc.LAUNCHES):
-            for name in counts:
-                counts[name] = 0
+        zero_counts()
         lines, cold = run_pipeline(inp, os.path.join(tmp, "cold"), cfg)
-        launches = {**pcg.LAUNCHES, **zncc.LAUNCHES}
+        launches = read_counts()
         z_exp, p_exp, kept, groups = predicted_launches(
             inp, os.path.join(tmp, "cold"), cfg, ArapWeights())
         say(f"phase 5 launches: zncc_search {launches['zncc_search']} "
             f"(predicted {z_exp}), pcg_fixed {launches['pcg_fixed']} "
             f"(predicted {p_exp}; solve groups {groups})")
         say(f"phase 5 kept constraints per (pair, object): {kept}")
-        if (launches["zncc_search"], launches["pcg_fixed"]) != (z_exp, p_exp):
+        if (launches["zncc_search"], launches["pcg_fixed"],
+                launches["pcg_fixed_tall"],
+                launches["anneal_solve_fused"]) != (z_exp, p_exp, 0, 0):
             raise AssertionError("launch counts differ from the prediction")
         if len(kept) != n_pairs * len(PIPE_OBJECTS) or min(kept.values()) < 20:
             raise AssertionError(f"too few constraints per object: {kept}")
         check_pipeline_products(inp, os.path.join(tmp, "cold"), lines)
 
         para_gen.TIMER = StageTimer()
-        for counts in (pcg.LAUNCHES, zncc.LAUNCHES):
-            for name in counts:
-                counts[name] = 0
+        zero_counts()
         lines, warm = run_pipeline(inp, os.path.join(tmp, "warm"), cfg)
-        if (zncc.LAUNCHES["zncc_search"], pcg.LAUNCHES["pcg_fixed"]) != (
+        warm_launches = read_counts()
+        if (warm_launches["zncc_search"], warm_launches["pcg_fixed"]) != (
                 z_exp, p_exp):
             raise AssertionError("warm run: launch counts differ")
         check_pipeline_products(inp, os.path.join(tmp, "warm"), lines)
@@ -782,44 +979,243 @@ def phase_pipeline(smi: str, profiled: bool = False):
     return launches
 
 
+def interior_operands(H: int, W: int, seed: int, device):
+    """tests/test_pallas_solver.py's problem: an interior solve region with a
+    jittered constraint grid and border pins (one problem, stacked B=1)."""
+    from arap_flow_tpu_torch.io.constraints import add_border_pins
+    from arap_flow_tpu_torch.ops import energy as E
+
+    mask = np.full((H, W), 255, np.uint8)
+    mask[2 : H - 2, 8 : W - 8] = 0
+    ys, xs = np.mgrid[3 : H - 3 : 4, 10 : W - 10 : 12]
+    rng = np.random.default_rng(seed)
+    cons = np.stack([xs.ravel(), ys.ravel(),
+                     xs.ravel() + rng.integers(-3, 4, xs.size),
+                     ys.ravel() + rng.integers(-3, 4, xs.size)],
+                    1).astype(np.int32)
+    ops = E.build_operands(mask, add_border_pins(cons, W, H), device=device)
+    return [ops], stack_operands([ops])
+
+
+# (B, H, W) and (num_anneal, gn_iters, pcg_iters) of phase 6's checks
+FUSED_CHECKS = (((1, 16, 128), (3, 2, 60)), ((1, 192, 384), (2, 2, 40)),
+                ((4, 192, 256), (2, 2, 40)))
+# The unit of the fused kernel's times in the kernels line: one anneal step
+# of one GN step and 400 PCG iterations at the pipeline's chunk shape, the
+# per-GN kernel's 400-iteration call plus its linearisation.
+FUSED_UNIT = (1, 1, 400)
+# Largest |Δx| over the solve region between the fused kernel and its plain
+# version in phase 6's 1×1×3 and short-schedule checks: twice the largest
+# reading, 5.05e-3 at 16×128 3×2×60 on an H100 80GB HBM3 at 700 W (both
+# sides are deterministic).
+FUSED_MAX_DX = 0.01
+
+
+def phase_fused(smi: str, call_ms):
+    """The fused kernel against its plain version on the card. Returns (the
+    largest 1×1×1 or 1×1×3 |Δx|, kernel ms and plain ms of FUSED_UNIT at
+    the pipeline's chunk shape)."""
+    import torch
+
+    from arap_flow_tpu_torch import _build
+    from arap_flow_tpu_torch.ops import energy as E
+    from arap_flow_tpu_torch.ops.fused_solver import (anneal_solve_fused,
+                                                      anneal_solve_fused_plain)
+    from arap_flow_tpu_torch.ops.solver import SolverConfig
+
+    dev = torch.device("cuda", 0)
+    lib = _build.load("fused_solver")
+
+    def sched(na, gn, it):
+        return SolverConfig(num_anneal=na, gn_iters=gn, max_pcg_iters=it,
+                            pcg_iters=float(it))
+
+    max_err = 0.0
+    batches = {}
+    for (B, H, W), (na, gn, it) in FUSED_CHECKS:
+        if H < 64:
+            _, batch = interior_operands(H, W, 400, dev)
+        else:
+            _, batch = segment_operands(B, H, W, 400 + H, dev)
+        batches[(B, H, W)] = batch
+        # 1 and 3 PCG iterations of one GN step: the same arithmetic summed
+        # in another order; 3 holds β and both rz parities. By the third
+        # iteration rounding has grown to at most 8.4e-4 here (B=4 192×256
+        # on an H100 80GB HBM3 at 700 W), while a stale β or rz moves x by
+        # 0.49 or more on tests/test_torch_fused.py's problem
+        short = [float((anneal_solve_fused(batch, sched(1, 1, n))
+                        - anneal_solve_fused_plain(batch, sched(1, 1, n))
+                        ).abs().max()) for n in (1, 3)]
+        cfg = sched(na, gn, it)
+        k = anneal_solve_fused(batch, cfg)
+        kb = anneal_solve_fused(batch, cfg)
+        p = anneal_solve_fused_plain(batch, cfg)
+        torch.cuda.synchronize()
+        if not torch.equal(k, kb):
+            raise AssertionError(f"fused kernel not bitwise repeatable at "
+                                 f"{B}x{H}x{W}")
+        # over the solve region only: elsewhere x stays at the grid in both
+        d = (k - p).abs()[batch.mask[:, None].expand_as(k) > 0]
+        med, mx = float(d.median()), float(d.max())
+        cimg = E.anneal_constraints(batch, 1.0)
+        ck, cp = E.cost(k, batch, cimg), E.cost(p, batch, cimg)
+        cost_gap = float(((ck - cp).abs()
+                          / torch.clamp(cp.abs(), min=1e-30)).max())
+        ms = cuda_ms(lambda: anneal_solve_fused(batch, cfg))
+        plain_ms = cuda_ms(lambda: anneal_solve_fused_plain(batch, cfg),
+                           reps=1)
+        line = (f"phase 6 fused vs plain B={B} {H}x{W} {na}x{gn}x{it}: "
+                f"1x1x1 max|dx| {short[0]:.3g}, 1x1x3 max|dx| "
+                f"{short[1]:.3g}; over the solve region median|dx| "
+                f"{med:.3g}, max|dx| {mx:.3g}; largest relative cost gap "
+                f"{cost_gap:.3g}; bitwise repeat ok; "
+                f"{lib.fused_solve_blocks(B, H, W)} blocks; kernel "
+                f"{ms:.3f} ms, plain {plain_ms:.3f} ms a call")
+        say(line)
+        if not (short[0] < 1e-4 and short[1] < FUSED_MAX_DX and med < 1e-3
+                and mx < FUSED_MAX_DX and cost_gap < 0.05):
+            raise AssertionError(line)
+        max_err = max(max_err, *short)
+
+    batch = batches[PIPE_PCG_SHAPE]
+    unit = sched(*FUSED_UNIT)
+    unit_ms = cuda_ms(lambda: anneal_solve_fused(batch, unit))
+    unit_plain = cuda_ms(lambda: anneal_solve_fused_plain(batch, unit),
+                         reps=3)
+    bms, by = fused_bound(*PIPE_PCG_SHAPE, *FUSED_UNIT)
+    say(f"phase 6 fused {'x'.join(map(str, FUSED_UNIT))} at B=4 192x256: "
+        f"kernel {unit_ms:.3f} ms, plain {unit_plain:.3f} ms, bound "
+        f"{bms:.4f} ms ({by})")
+    full = SolverConfig()
+    steps = full.num_anneal * full.gn_iters
+    label = f"{full.num_anneal}x{full.gn_iters}x{full.max_pcg_iters}"
+    # 16x128 (8 blocks, a pixel a thread) shows the barriers' own cost
+    for shape in ((1, 16, 128), (1, 192, 384), PIPE_PCG_SHAPE):
+        b = batches[shape]
+        ms = cuda_ms(lambda: anneal_solve_fused(b, full), reps=3)
+        bms, by = fused_bound(*shape, full.num_anneal, full.gn_iters,
+                              full.max_pcg_iters)
+        line = (f"phase 6 fused {label} at B={shape[0]} {shape[1]}x"
+                f"{shape[2]}: kernel {ms:.3f} ms a solve "
+                f"({ms / (steps * full.max_pcg_iters) * 1000:.2f} us an "
+                f"iteration), bound {bms:.3f} ms ({by})")
+        if shape in call_ms:
+            line += (f"; per-GN PCG calls {steps} x {call_ms[shape][0]:.3f} "
+                     f"ms = {steps * call_ms[shape][0]:.3f} ms")
+        say(f"{line} ({smi})")
+    return max_err, unit_ms, unit_plain
+
+
+def phase_fused_pair(smi, probs, tasks, calls, ref_flows, ref_secs,
+                     profiled: bool = False) -> int:
+    """Phase 3's pair with backend='fused'. Returns the fused kernel's
+    launches in the cold run. With `profiled`, one more warm run under
+    torch.profiler prints its device time and busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from arap_flow_tpu_torch.ops.solver import SolverConfig
+
+    dev = torch.device("cuda", 0)
+    cfg = SolverConfig(backend="fused")
+    zero_counts()
+    t0 = time.perf_counter()
+    out, _ = run_pair(probs, tasks, cfg, dev)
+    cold = time.perf_counter() - t0
+    launches = read_counts()
+    if (launches["anneal_solve_fused"], launches["pcg_fixed"],
+            launches["pcg_fixed_tall"]) != (len(calls), 0, 0):
+        raise AssertionError(f"fused pair launches {launches}, expected "
+                             f"anneal_solve_fused {len(calls)} and no PCG")
+    for j, (rgb, mask, cons, motion) in enumerate(probs):
+        flow = out[(0, j)].flow
+        if flow.shape != (FRAME_H, FRAME_W, 2) or not np.isfinite(flow).all():
+            raise AssertionError(f"fused segment {j}: bad flow {flow.shape}")
+        epe = rigid_epe_median(flow, mask, SEG_SHAPES[j][0], motion)
+        d = np.abs(flow - ref_flows[j])[mask == 0]
+        line = (f"phase 6b fused segment {j}: median rigid EPE {epe:.4f} px; "
+                f"|flow - per-GN flow| median {float(np.median(d)):.4g} px, "
+                f"max {float(d.max()):.4g} px over the object")
+        say(line)
+        if not (epe < 1.0 and float(np.median(d)) < 0.05):
+            raise AssertionError(line)
+    t0 = time.perf_counter()
+    run_pair(probs, tasks, cfg, dev)
+    warm = time.perf_counter() - t0
+    say(f"phase 6b fused pair seconds: cold {cold:.3f}, warm {warm:.3f} "
+        f"(per-GN phase 3: cold {ref_secs[0]:.3f}, warm {ref_secs[1]:.3f}; "
+        f"{smi}); anneal_solve_fused launches {launches['anneal_solve_fused']}"
+        f" (one per solve chunk), pcg_fixed {launches['pcg_fixed']}")
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_pair(probs, tasks, cfg, dev)
+            wall = time.perf_counter() - t0
+        device_time_report(prof, wall, "phase 6b profiled warm fused pair")
+    return launches["anneal_solve_fused"]
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the pipeline's device time (phase 5)")
+                    help="also profile the device time of the pipeline "
+                         "(phase 5) and of the fused pair (phase 6b)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         say("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU")
         return 1
     sys.path.insert(0, ROOT)
+    # every phase runs the standard PCG layout unless it sets the variable
+    os.environ.pop("ARAP_TALL_KERNEL", None)
     smi = phase_env()
     phase_build()
     probs, tasks = make_tasks()
     calls = solve_calls(tasks)
     main_shapes = sorted(set(calls))
     shapes = [(1, 16, 128), (3, 224, 384), (1, 480, 854), *main_shapes]
-    max_err, call_ms = phase_kernel(
+    max_err, tall_err, call_ms = phase_kernel(
         shapes, [(3, 224, 384), (1, 480, 854)],
         [*main_shapes, PIPE_PCG_SHAPE])
-    ms, plain_ms = call_ms[PIPE_PCG_SHAPE]
+    ms, plain_ms, tall_ms = call_ms[PIPE_PCG_SHAPE]
+    tall_launches = phase_solve_batch(smi)
     small_reference_check()
-    launches = phase_main_path(smi, probs, tasks, calls, call_ms)
+    launches, pair_flows, pair_secs = phase_main_path(smi, probs, tasks,
+                                                      calls, call_ms)
     if launches["pcg_fixed"] <= 0:
         raise AssertionError("the deform path never launched pcg_fixed")
     z_err, z_ms, z_plain, z_bound, z_by = phase_zncc()
     launches = phase_pipeline(smi, args.profile)
-    if min(launches.values()) <= 0:
+    if launches["zncc_search"] <= 0 or launches["pcg_fixed"] <= 0:
         raise AssertionError(f"the pipeline missed a kernel: {launches}")
+    f_err, f_ms, f_plain = phase_fused(smi, call_ms)
+    f_launches = phase_fused_pair(smi, probs, tasks, calls, pair_flows,
+                                  pair_secs, args.profile)
     p_bound, p_by = pcg_bound(*PIPE_PCG_SHAPE)
+    f_bound, f_by = fused_bound(*PIPE_PCG_SHAPE, *FUSED_UNIT)
+    pcg_row = {"route": "cuda", "source": "arap_flow_tpu_torch/csrc/pcg.cu",
+               "plain_ms": plain_ms, "bound_ms": p_bound, "bound_by": p_by,
+               "library_ms": None}
     say(json.dumps({"kernels": [{
-        "name": "pcg_fixed", "route": "cuda",
-        "source": "arap_flow_tpu_torch/csrc/pcg.cu",
-        "replaces": "arap_flow_tpu/ops/pallas_pcg.py:247",
-        "launches": launches["pcg_fixed"], "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": p_bound,
-        "bound_by": p_by, "library_ms": None,
+        "name": "pcg_fixed", **pcg_row,
+        "replaces": "arap_flow_tpu/ops/pallas_pcg.py:247, "
+                    "arap_flow_tpu/ops/pallas_pcg.py:516",
+        "launches": launches["pcg_fixed"], "max_abs_err": max_err, "ms": ms,
+    }, {
+        "name": "pcg_fixed_tall", **pcg_row,
+        "replaces": "arap_flow_tpu/ops/pallas_pcg.py:377, "
+                    "arap_flow_tpu/ops/pallas_pcg.py:651",
+        "launches": tall_launches, "max_abs_err": tall_err, "ms": tall_ms,
+    }, {
+        "name": "anneal_solve_fused", "route": "cuda",
+        "source": "arap_flow_tpu_torch/csrc/fused_solver.cu",
+        "replaces": "arap_flow_tpu/ops/pallas_solver.py:171",
+        "launches": f_launches, "max_abs_err": f_err, "ms": f_ms,
+        "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by,
+        "library_ms": None,
     }, {
         "name": "zncc_search", "route": "cuda",
         "source": "arap_flow_tpu_torch/csrc/zncc.cu",
