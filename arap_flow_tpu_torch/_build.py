@@ -89,12 +89,16 @@ def load(stem: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(lib_path(stem + ".cu"))
     vp, i = ctypes.c_void_p, ctypes.c_int
     if stem == "pcg":
-        lib.pcg_fixed_nblk.argtypes = [i, i]
-        lib.pcg_fixed_nblk.restype = i
         lib.pcg_error_string.argtypes = [i]
         lib.pcg_error_string.restype = ctypes.c_char_p
-        lib.pcg_fixed_f32.argtypes = [vp] * 12 + [i, i, i, i, i, vp]
+        lib.pcg_active_clusters.argtypes = [i] * 7 + [vp]
+        lib.pcg_active_clusters.restype = i
+        lib.pcg_fixed_f32.argtypes = [vp] * 11 + [i] * 10 + [vp]
         lib.pcg_fixed_f32.restype = i
+        lib.pcg_three_pass_nblk.argtypes = [i, i]
+        lib.pcg_three_pass_nblk.restype = i
+        lib.pcg_three_pass_f32.argtypes = [vp] * 12 + [i] * 4 + [vp]
+        lib.pcg_three_pass_f32.restype = i
     elif stem == "fused_solver":
         lib.fused_error_string.argtypes = [i]
         lib.fused_error_string.restype = ctypes.c_char_p

@@ -9,12 +9,19 @@ Phases, each reported on its own line; any failure exits non-zero:
 1. build: compiles the three CUDA libraries from ``arap_flow_tpu_torch/csrc``
    (pcg, zncc, fused_solver), one nvcc process per source, all started
    together, and loads them.
-2. PCG kernel vs plain: ``pcg_fixed`` (CUDA) in both layouts, standard and
-   tall, against ``pcg_fixed_plain`` on the same numpy-seeded problems, on
-   the card: 1 iteration to rtol/atol 1e-4; at 160 iterations both
-   converged (‖b − JtJ·δ‖ ≤ 1e-5·‖b‖ for every problem) with max |Δδ| <
-   0.01; two kernel runs bitwise equal; the tall layout within 1e-5 of the
-   standard one; µs per iteration and ms per 400-iteration call.
+2. PCG kernel vs plain: for each shape, the cluster kernel's plan
+   (``pcg_plan``: CTAs a problem, rows a CTA, resident or streamed, planes
+   in shared memory) and how many of its clusters the card holds at once
+   (cudaOccupancyMaxActiveClusters, both layouts); then ``pcg_fixed``
+   (CUDA) in both layouts, standard and tall, against ``pcg_fixed_plain``
+   on the same numpy-seeded problems, on the card: 1 iteration to
+   rtol/atol 1e-4; at 160 iterations both converged (‖b − JtJ·δ‖ ≤
+   1e-5·‖b‖ for every problem) with max |Δδ| < 0.01; two kernel runs
+   bitwise equal; the tall layout within 1e-5 of the standard one. The
+   shapes cover both memory plans (384×640 the largest resident one,
+   480×854 and 512×896 streamed). Then ms per 400-iteration call of the
+   cluster kernel beside the three-pass yardstick
+   (``_pcg_fixed_three_pass``), the tall layout and the plain version.
 2b. solve_batch: 4 numpy-seeded 192×256 problems (the pipeline's chunk
    shape) at 3×2×60 against per-problem solves (1e-4) and against the
    plain version on the CPU (max |Δflow| < 0.05 px, median < 0.005 px),
@@ -212,6 +219,20 @@ def pcg_problem(B: int, H: int, W: int, seed: int, device):
     return ops, args
 
 
+# Phase 2's shapes besides the main path's: a thin one (one row a CTA),
+# B = 3, the pipeline's chunk, the largest resident bucket (p only in
+# shared memory), the two streamed shapes (the full frame and the largest
+# bucket), the pipeline's largest chunk (pipeline/batch.py's MAX_CHUNK of
+# the smallest bucket), a batch large enough for one-CTA clusters and an
+# odd width (one pixel a thread; even widths take pixel pairs).
+KERNEL_SHAPES = ((1, 16, 128), (3, 224, 384), (4, 192, 256), (1, 384, 640),
+                 (1, 480, 854), (1, 512, 896), (24, 64, 128), (72, 16, 128),
+                 (3, 33, 85))
+# 400-iteration calls timed besides the main path's: the thin shape (the
+# kernel's fixed cost an iteration), the largest resident bucket, the full
+# frame (streamed) and the largest chunk.
+TIMED_SHAPES = ((1, 16, 128), (1, 384, 640), (1, 480, 854), (24, 64, 128))
+
 # At 160 iterations CG has converged on these problems: the plain version
 # reaches ≤ 3e-7·‖b‖ at every shape below (CPU run), so a bound of 1e-5·‖b‖
 # does not depend on where CG stands in its oscillation, as a ratio of two
@@ -283,19 +304,37 @@ def check_pcg_layout(ops, args, tall: bool, plain1, plain_n, shape):
     return k1, kn, float((k1 - plain1).abs().max()), res, dn
 
 
-def phase_kernel(shapes, timed_shapes, call_shapes):
-    """Kernel in both layouts vs plain on the card at each (B, H, W).
-    Returns the largest 1-iteration |difference| of each layout and, for
-    each of `call_shapes` (the main path's), the median ms of one
-    400-iteration call of the kernel, the plain version and the tall
-    kernel."""
+def plan_line(B: int, H: int, W: int) -> str:
+    """The cluster kernel's plan at (B, H, W) and its active clusters on
+    this card in both layouts."""
+    from arap_flow_tpu_torch.ops.pcg import active_clusters, pcg_plan
+
+    plan = pcg_plan(B, H, W)
+    act = [active_clusters(B, H, W, tall=t) for t in (False, True)]
+    if min(act) <= 0:
+        raise AssertionError(f"no cluster of {plan} fits the card")
+    return (f"phase 2 plan B={B} {H}x{W}: cluster {plan.cluster}, "
+            f"{plan.rows_per_cta} rows a CTA, "
+            f"{'resident' if plan.resident else 'streamed'}, "
+            f"{plan.groups} groups in shared memory, {plan.smem_bytes} B; "
+            f"active clusters {act[0]} (tall {act[1]})")
+
+
+def phase_kernel(shapes, call_shapes):
+    """Kernel in both layouts vs plain on the card at each (B, H, W), with
+    its plan. Returns the largest 1-iteration |difference| of each layout
+    and, for each of `call_shapes`, the median ms of one 400-iteration call
+    of the kernel, the plain version, the tall kernel and the three-pass
+    yardstick."""
     import torch
 
-    from arap_flow_tpu_torch.ops.pcg import pcg_fixed, pcg_fixed_plain
+    from arap_flow_tpu_torch.ops.pcg import (_pcg_fixed_three_pass,
+                                             pcg_fixed, pcg_fixed_plain)
 
     dev = torch.device("cuda", 0)
     max_err = max_err_tall = 0.0
     for B, H, W in shapes:
+        say(plan_line(B, H, W))
         ops, args = pcg_problem(B, H, W, seed=10 * H + W, device=dev)
         p1 = pcg_fixed_plain(*args, 1)
         pn = pcg_fixed_plain(*args, CONVERGED_ITERS)
@@ -308,29 +347,25 @@ def phase_kernel(shapes, timed_shapes, call_shapes):
             raise AssertionError(f"tall and standard layouts differ by "
                                  f"{d_std} at {B}x{H}x{W}")
         max_err, max_err_tall = max(max_err, err1), max(max_err_tall, terr1)
-        line = (f"phase 2 kernel vs plain B={B} {H}x{W}: 1-iter max|d| "
-                f"{err1:.3g} (tall {terr1:.3g}); {CONVERGED_ITERS}-iter "
-                f"residual/|b| {res_k:.3g} (tall {res_t:.3g}), max|d| "
-                f"{dn:.3g} (tall {dtn:.3g}); tall vs standard max|d| "
-                f"{d_std:.3g}; bitwise repeat ok")
-        if (B, H, W) in timed_shapes:
-            us_k = cuda_ms(lambda: pcg_fixed(*args, 200, tall=False)
-                           ) * 1000.0 / 200
-            us_p = cuda_ms(lambda: pcg_fixed_plain(*args, 20),
-                           reps=3) * 1000.0 / 20
-            line += f"; us/iter kernel {us_k:.2f}, plain {us_p:.2f}"
-        say(line)
+        say(f"phase 2 kernel vs plain B={B} {H}x{W}: 1-iter max|d| "
+            f"{err1:.3g} (tall {terr1:.3g}); {CONVERGED_ITERS}-iter "
+            f"residual/|b| {res_k:.3g} (tall {res_t:.3g}), max|d| "
+            f"{dn:.3g} (tall {dtn:.3g}); tall vs standard max|d| "
+            f"{d_std:.3g}; bitwise repeat ok")
     call_ms = {}
     for B, H, W in call_shapes:
         _, args = pcg_problem(B, H, W, seed=7, device=dev)
         ms = cuda_ms(lambda: pcg_fixed(*args, 400, tall=False))
+        three_ms = cuda_ms(lambda: _pcg_fixed_three_pass(*args, 400))
         tall_ms = cuda_ms(lambda: pcg_fixed(*args, 400, tall=True))
         plain_ms = cuda_ms(lambda: pcg_fixed_plain(*args, 400), reps=3)
-        call_ms[(B, H, W)] = (ms, plain_ms, tall_ms)
+        call_ms[(B, H, W)] = (ms, plain_ms, tall_ms, three_ms)
         bms, by = pcg_bound(B, H, W)
-        say(f"phase 2 one 400-iteration call at B={B} {H}x{W}: kernel "
-            f"{ms:.3f} ms, tall {tall_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {bms:.4f} ms ({by})")
+        say(f"phase 2 one 400-iteration call at B={B} {H}x{W}: cluster "
+            f"kernel {ms:.3f} ms ({ms * 2.5:.2f} us an iteration), three-pass "
+            f"{three_ms:.3f} ms ({three_ms * 2.5:.2f} us an iteration), tall "
+            f"{tall_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms "
+            f"({by})")
     return max_err, max_err_tall, call_ms
 
 
@@ -1176,11 +1211,10 @@ def main() -> int:
     probs, tasks = make_tasks()
     calls = solve_calls(tasks)
     main_shapes = sorted(set(calls))
-    shapes = [(1, 16, 128), (3, 224, 384), (1, 480, 854), *main_shapes]
     max_err, tall_err, call_ms = phase_kernel(
-        shapes, [(3, 224, 384), (1, 480, 854)],
-        [*main_shapes, PIPE_PCG_SHAPE])
-    ms, plain_ms, tall_ms = call_ms[PIPE_PCG_SHAPE]
+        [*KERNEL_SHAPES, *main_shapes],
+        [PIPE_PCG_SHAPE, *main_shapes, *TIMED_SHAPES])
+    ms, plain_ms, tall_ms, _ = call_ms[PIPE_PCG_SHAPE]
     tall_launches = phase_solve_batch(smi)
     small_reference_check()
     launches, pair_flows, pair_secs = phase_main_path(smi, probs, tasks,

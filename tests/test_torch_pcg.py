@@ -158,20 +158,31 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# (H, W) on the card: the resident plan (16×128: one row a CTA, every
+# plane in shared memory) and the streamed plan (480×854, the full frame)
+CARD_SHAPES = ((16, 128), (480, 854))
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize("tall", [False, True], ids=["standard", "tall"])
+@pytest.mark.parametrize("H,W", CARD_SHAPES,
+                         ids=[f"{h}x{w}" for h, w in CARD_SHAPES])
+def test_kernel_matches_plain_on_card(cuda_device, H, W, tall):
     """On the card: the CUDA kernel against its plain version (1 iteration
-    to 1e-4; both converged at 160 iterations; bitwise repeatable)."""
-    ops, s, c, jtf, diag = _problem(seed=8)
+    to 1e-4; both converged at 160 iterations; bitwise repeatable), in both
+    memory plans and both layouts, one launch a call."""
+    assert TP.pcg_plan(1, H, W).resident == ((H, W) == (16, 128))
+    ops, s, c, jtf, diag = _problem(H, W, seed=8)
     _, args = _port_args(ops, s, c, jtf, diag)
     args = [a.to(cuda_device) for a in args]
-    n0 = TP.LAUNCHES["pcg_fixed"]
-    torch.testing.assert_close(TP.pcg_fixed(*args, 1),
+    key = "pcg_fixed_tall" if tall else "pcg_fixed"
+    n0 = TP.LAUNCHES[key]
+    torch.testing.assert_close(TP.pcg_fixed(*args, 1, tall=tall),
                                TP.pcg_fixed_plain(*args, 1),
                                rtol=1e-4, atol=1e-4)
-    k = TP.pcg_fixed(*args, CONVERGED_ITERS)
-    assert torch.equal(k, TP.pcg_fixed(*args, CONVERGED_ITERS))
+    k = TP.pcg_fixed(*args, CONVERGED_ITERS, tall=tall)
+    assert torch.equal(k, TP.pcg_fixed(*args, CONVERGED_ITERS, tall=tall))
     plain = TP.pcg_fixed_plain(*args, CONVERGED_ITERS)
     _assert_converged(k[0].cpu().numpy(), plain[0].cpu().numpy(), ops, s, c,
                       jtf)
-    assert TP.LAUNCHES["pcg_fixed"] == n0 + 3
+    assert TP.LAUNCHES[key] == n0 + 3
