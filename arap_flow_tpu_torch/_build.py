@@ -95,10 +95,6 @@ def load(stem: str) -> ctypes.CDLL:
         lib.pcg_active_clusters.restype = i
         lib.pcg_fixed_f32.argtypes = [vp] * 11 + [i] * 10 + [vp]
         lib.pcg_fixed_f32.restype = i
-        lib.pcg_three_pass_nblk.argtypes = [i, i]
-        lib.pcg_three_pass_nblk.restype = i
-        lib.pcg_three_pass_f32.argtypes = [vp] * 12 + [i] * 4 + [vp]
-        lib.pcg_three_pass_f32.restype = i
     elif stem == "fused_solver":
         lib.fused_error_string.argtypes = [i]
         lib.fused_error_string.restype = ctypes.c_char_p
@@ -111,7 +107,9 @@ def load(stem: str) -> ctypes.CDLL:
     elif stem == "zncc":
         lib.zncc_error_string.argtypes = [i]
         lib.zncc_error_string.restype = ctypes.c_char_p
-        lib.zncc_search_f32.argtypes = [vp] * 7 + [i, i, i, i, i, vp]
+        lib.zncc_search_splits.argtypes = [i] * 4
+        lib.zncc_search_splits.restype = i
+        lib.zncc_search_f32.argtypes = [vp] * 8 + [i] * 6 + [vp]
         lib.zncc_search_f32.restype = i
     else:
         raise ValueError(f"no kernel library {stem!r}")

@@ -24,8 +24,10 @@
 // neighbours, which cuts the loads and address arithmetic a pixel.
 // Problems are independent: clusters never wait for each other, and a batch
 // larger than the card runs in waves. The host picks the plan
-// (ops/pcg.py::pcg_plan); the entry checks it against the card with
-// cudaOccupancyMaxActiveClusters and refuses a plan of which no cluster fits.
+// (ops/pcg.py::pcg_plan: the largest cluster of which the card holds the
+// whole batch at once, by pcg_active_clusters, else the fewest waves); the
+// entry checks it against the card with cudaOccupancyMaxActiveClusters and
+// refuses a plan of which no cluster fits.
 //
 // Memory plans. Only p is read across threads (its 4 neighbours); every
 // other mutable plane is private to its pixel's thread. Each CTA keeps p's
@@ -95,10 +97,6 @@
 // _jtj_factored (regrouping them as deg·px − Σ v·pxj cancels large products),
 // and the 12 loop-constant planes of the TPU kernel (gx/gy[4], fitw, TxW,
 // TyW, degw) are recomputed per pixel from s, c, vm and fit.
-//
-// The earlier three-pass form (pcg_init, pcg_jtj, pcg_update,
-// pcg_direction: 1 + 3·iters launches a call) stays below as a yardstick,
-// entry pcg_three_pass_f32; no solver route reaches it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -824,170 +822,6 @@ bool plan_ok(int H, int W, int cluster, int rows, int resident, int groups,
              static_cast<size_t>(smem);
 }
 
-// ---- the three-pass yardstick: 1 + 3·iters launches a call --------------
-
-constexpr int kPassThreads = 256;
-// Blocks per problem: enough to fill the card at B = 1 (132 SMs, 2 blocks
-// each) while keeping the partial-sum reduction short.
-constexpr int kPassMaxBlocks = 264;
-
-// Fixed-order block sum; every thread returns the total.
-__device__ float block_sum(float v, float* sh) {
-  sh[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = kPassThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
-    __syncthreads();
-  }
-  float total = sh[0];
-  __syncthreads();
-  return total;
-}
-
-// Sum of one problem's `nblk` block partials, in a fixed order.
-__device__ float sum_partials(const float* part, int nblk, float* sh) {
-  float v = 0.f;
-  for (int k = threadIdx.x; k < nblk; k += kPassThreads) v += part[k];
-  return block_sum(v, sh);
-}
-
-__device__ __forceinline__ float load_or_zero(const float* a, int y, int x,
-                                              int H, int W) {
-  return (y >= 0 && y < H && x >= 0 && x < W) ? a[y * W + x] : 0.f;
-}
-
-// r = b, p = z = pre·b, δ = 0; per-block partials of Σ r·z.
-__global__ void __launch_bounds__(kPassThreads)
-pcg_init(const float* __restrict__ b, const float* __restrict__ pre,
-         float* __restrict__ delta, float* __restrict__ r,
-         float* __restrict__ p, float* __restrict__ rz_part, int HW,
-         int nblk) {
-  __shared__ float sh[kPassThreads];
-  const size_t base = (size_t)blockIdx.y * 3 * HW;
-  float acc = 0.f;
-  for (int i = blockIdx.x * kPassThreads + threadIdx.x; i < HW;
-       i += nblk * kPassThreads) {
-    float t = 0.f;
-    for (int ch = 0; ch < 3; ++ch) {
-      const size_t k = base + (size_t)ch * HW + i;
-      const float rv = b[k];
-      const float z = pre[k] * rv;
-      r[k] = rv;
-      p[k] = z;
-      delta[k] = 0.f;
-      t += rv * z;
-    }
-    acc += t;
-  }
-  const float total = block_sum(acc, sh);
-  if (threadIdx.x == 0) rz_part[blockIdx.y * nblk + blockIdx.x] = total;
-}
-
-// Ap = JtJ·p (factored form); per-block partials of Σ p·Ap.
-__global__ void __launch_bounds__(kPassThreads)
-pcg_jtj(const float* __restrict__ p, const float* __restrict__ s,
-        const float* __restrict__ c, const float* __restrict__ vm,
-        const float* __restrict__ fit, const float* __restrict__ w,
-        float* __restrict__ ap, float* __restrict__ pap_part, int H, int W,
-        int nblk) {
-  __shared__ float sh[kPassThreads];
-  const int HW = H * W;
-  const int bi = blockIdx.y;
-  const float* px = p + (size_t)bi * 3 * HW;
-  const float* py = px + HW;
-  const float* pa = py + HW;
-  const float* sb = s + (size_t)bi * HW;
-  const float* cb = c + (size_t)bi * HW;
-  const float* fb = fit + (size_t)bi * HW;
-  const float* vb = vm + (size_t)bi * 4 * HW;
-  float* apx_out = ap + (size_t)bi * 3 * HW;
-  const float wf2 = w[2 * bi];
-  const float wr2 = w[2 * bi + 1];
-  // DIRS = ((0, 1), (0, -1), (1, 0), (-1, 0)) as (dy, dx)
-  const int DY[4] = {0, 0, 1, -1};
-  const int DX[4] = {1, -1, 0, 0};
-
-  float acc = 0.f;
-  for (int i = blockIdx.x * kPassThreads + threadIdx.x; i < HW;
-       i += nblk * kPassThreads) {
-    const int y = i / W;
-    const int x = i - y * W;
-    const float pc[3] = {px[i], py[i], pa[i]};
-    float v[4], pj[3][4], sj[4], cj[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int yy = y + DY[k], xx = x + DX[k];
-      v[k] = vb[(size_t)k * HW + i];
-      pj[0][k] = load_or_zero(px, yy, xx, H, W);
-      pj[1][k] = load_or_zero(py, yy, xx, H, W);
-      pj[2][k] = load_or_zero(pa, yy, xx, H, W);
-      sj[k] = load_or_zero(sb, yy, xx, H, W);
-      cj[k] = load_or_zero(cb, yy, xx, H, W);
-    }
-    float api[3];
-    jtj_pixel(pc, pj, sb[i], cb[i], sj, cj, v, fb[i], wf2, wr2, api);
-    apx_out[i] = api[0];
-    apx_out[HW + i] = api[1];
-    apx_out[2 * HW + i] = api[2];
-    acc += pc[0] * api[0] + pc[1] * api[1] + pc[2] * api[2];
-  }
-  const float total = block_sum(acc, sh);
-  if (threadIdx.x == 0) pap_part[bi * nblk + blockIdx.x] = total;
-}
-
-// α from the Σ p·Ap and previous Σ r·z partials; δ += αp, r −= α·Ap;
-// per-block partials of the new Σ z·r with z = pre·r.
-__global__ void __launch_bounds__(kPassThreads)
-pcg_update(const float* __restrict__ ap, const float* __restrict__ p,
-           const float* __restrict__ pre, float* __restrict__ delta,
-           float* __restrict__ r, const float* __restrict__ pap_part,
-           const float* __restrict__ rz_old_part,
-           float* __restrict__ rz_new_part, int HW, int nblk) {
-  __shared__ float sh[kPassThreads];
-  const int bi = blockIdx.y;
-  const float pap = sum_partials(pap_part + bi * nblk, nblk, sh);
-  const float rz = sum_partials(rz_old_part + bi * nblk, nblk, sh);
-  const float alpha = pap > 0.f ? rz / pap : 0.f;
-  const size_t base = (size_t)bi * 3 * HW;
-  float acc = 0.f;
-  for (int i = blockIdx.x * kPassThreads + threadIdx.x; i < HW;
-       i += nblk * kPassThreads) {
-    float t = 0.f;
-    for (int ch = 0; ch < 3; ++ch) {
-      const size_t k = base + (size_t)ch * HW + i;
-      delta[k] = delta[k] + alpha * p[k];
-      const float rv = r[k] - alpha * ap[k];
-      r[k] = rv;
-      const float z = pre[k] * rv;
-      t += z * rv;
-    }
-    acc += t;
-  }
-  const float total = block_sum(acc, sh);
-  if (threadIdx.x == 0) rz_new_part[bi * nblk + blockIdx.x] = total;
-}
-
-// β from the new and previous Σ r·z partials; p = pre·r + βp.
-__global__ void __launch_bounds__(kPassThreads)
-pcg_direction(const float* __restrict__ r, const float* __restrict__ pre,
-              float* __restrict__ p, const float* __restrict__ rz_old_part,
-              const float* __restrict__ rz_new_part, int HW, int nblk) {
-  __shared__ float sh[kPassThreads];
-  const int bi = blockIdx.y;
-  const float rz_old = sum_partials(rz_old_part + bi * nblk, nblk, sh);
-  const float rz_new = sum_partials(rz_new_part + bi * nblk, nblk, sh);
-  const float beta = rz_old > 0.f ? rz_new / rz_old : 0.f;
-  const size_t base = (size_t)bi * 3 * HW;
-  for (int i = blockIdx.x * kPassThreads + threadIdx.x; i < HW;
-       i += nblk * kPassThreads) {
-    for (int ch = 0; ch < 3; ++ch) {
-      const size_t k = base + (size_t)ch * HW + i;
-      const float z = pre[k] * r[k];
-      p[k] = z + beta * p[k];
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -1046,51 +880,6 @@ int pcg_fixed_f32(const float* b, const float* pre, const float* s,
   if (active == 0) return kNoClusterFits;
   err = cudaLaunchKernelEx(&cfg, kern, a);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Blocks per problem of the three-pass form; its partial-sum scratch holds
-// 3·B·pcg_three_pass_nblk(H, W) floats.
-int pcg_three_pass_nblk(int H, int W) {
-  const int need = (H * W + kPassThreads - 1) / kPassThreads;
-  return need < kPassMaxBlocks ? need : kPassMaxBlocks;
-}
-
-// The three-pass yardstick (standard layout): the arguments of
-// pcg_fixed_f32 with r, p, ap required and part (3,B,nblk) as scratch.
-// Enqueues 1 + 3·iters kernels on `stream`.
-int pcg_three_pass_f32(const float* b, const float* pre, const float* s,
-                       const float* c, const float* vm, const float* fit,
-                       const float* w, float* delta, float* r, float* p,
-                       float* ap, float* part, int B, int H, int W, int iters,
-                       void* stream) {
-  if (B <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int HW = H * W;
-  const int nblk = pcg_three_pass_nblk(H, W);
-  const dim3 grid(nblk, B);
-  float* pap_part = part;
-  float* rz_part[2] = {part + (size_t)B * nblk, part + (size_t)2 * B * nblk};
-
-  // the init partials stand in for "iteration −1", slot 1
-  pcg_init<<<grid, kPassThreads, 0, st>>>(b, pre, delta, r, p, rz_part[1],
-                                          HW, nblk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  for (int it = 0; it < iters; ++it) {
-    float* rz_new = rz_part[it & 1];
-    const float* rz_old = rz_part[(it + 1) & 1];
-    pcg_jtj<<<grid, kPassThreads, 0, st>>>(p, s, c, vm, fit, w, ap, pap_part,
-                                           H, W, nblk);
-    pcg_update<<<grid, kPassThreads, 0, st>>>(ap, p, pre, delta, r, pap_part,
-                                              rz_old, rz_new, HW, nblk);
-    pcg_direction<<<grid, kPassThreads, 0, st>>>(r, pre, p, rz_old, rz_new,
-                                                 HW, nblk);
-    if (it == 0) {
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,8 +8,10 @@ Four parts:
   ``_pcg_kernel_batched`` (loop-constant planes of
   ``_precompute_const_planes`` + the factored JtJ of ``_jtj_factored``).
 - ``pcg_plan``: the launch plan of the CUDA kernel for (B, H, W), pure
-  Python: the thread-block cluster per problem, the rows each CTA owns,
-  and which planes live in shared memory.
+  Python given the card's active clusters of each candidate plan: the
+  thread-block cluster per problem, the rows each CTA owns, and which
+  planes live in shared memory. ``card_plan`` fills in those counts from
+  the device (cudaOccupancyMaxActiveClusters) and caches the plan.
 - ``pcg_fixed``: the wrapper. A CPU tensor goes to ``pcg_fixed_plain``; a
   CUDA tensor goes to the cluster kernel in ``csrc/pcg.cu`` (built on first
   use by ``_build``), one launch a call, or raises. There is no fallback
@@ -21,17 +23,14 @@ The tall layout (``ARAP_TALL_KERNEL``, the TPU's ``pcg_pallas_tall`` and
 ``pcg_pallas_batched_tall``) is a template flag of the same kernel that
 reads p as one stacked (3H, W) plane per problem; ``tall=None`` reads the
 variable at call time. It is counted as ``pcg_fixed_tall``.
-
-``_pcg_fixed_three_pass`` launches the earlier three-pass form of the
-kernel (1 + 3·iters launches a call), kept only as a yardstick for
-``chip_smoke.py``; no solver route reaches it and it is not counted.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -41,10 +40,9 @@ from .stencil import DIRS, shift
 LAUNCHES: dict[str, int] = {"pcg_fixed": 0, "pcg_fixed_tall": 0}
 
 # The card the plan is made for (an H100): shared memory one block can use,
-# of which the kernel's own static arrays take under 1 KB, and its SMs.
+# of which the kernel's own static arrays take under 1 KB.
 SMEM_PER_BLOCK = 232_448
 _STATIC_SMEM = 1024
-SMS = 132
 MAX_CLUSTER = 16
 
 
@@ -69,34 +67,60 @@ def _group_bytes(rows: int, W: int) -> tuple[int, ...]:
     return 2 * (band + 8 * W), 3 * band, 3 * band, 3 * band
 
 
-def pcg_plan(B: int, H: int, W: int) -> PcgPlan:
-    """The cluster kernel's plan for B problems of H×W.
-
-    The cluster is the smallest (1..16) whose band of p (3 floats a pixel)
-    fits a block's shared memory: the resident plan. It is then raised
-    toward SMS // B, so that the batch's B·cluster CTAs cover the card's
-    132 SMs, but never above 16. Where p does not fit 16 CTAs the plan is
-    streamed, with 16. The rows are split evenly (the last band may be
-    shorter), and the cluster is trimmed so that no CTA is left without
-    rows. The groups then fill the shared memory that is left, in order,
-    until the next one does not fit (the streamed plan keeps none)."""
-    budget = SMEM_PER_BLOCK - _STATIC_SMEM
-    fits = [c for c in range(1, MAX_CLUSTER + 1)
-            if 24 * W + 12 * -(-H // c) * W <= budget]
-    resident = bool(fits)
-    cluster = (min(MAX_CLUSTER, max(fits[0], SMS // max(B, 1))) if resident
-               else MAX_CLUSTER)
+def _plan_with(H: int, W: int, cluster: int, resident: bool) -> PcgPlan:
+    """The plan of `cluster` CTAs a problem. The rows are split evenly (the
+    last band may be shorter) and the cluster is trimmed so that no CTA is
+    left without rows. The groups then fill the shared memory that is left,
+    in order, until the next one does not fit (the streamed plan keeps
+    none)."""
     rows = -(-H // cluster)
     cluster = -(-H // rows)
     # the halo rows of p above and below the band, then p's band
     smem = 24 * W + (12 * rows * W if resident else 0)
     groups = 0
     for nbytes in _group_bytes(rows, W) if resident else ():
-        if smem + nbytes > budget:
+        if smem + nbytes > SMEM_PER_BLOCK - _STATIC_SMEM:
             break
         smem += nbytes
         groups += 1
     return PcgPlan(cluster, rows, resident, smem, groups)
+
+
+def candidate_plans(H: int, W: int) -> list[PcgPlan]:
+    """The plans the kernel can run an H×W problem with, by cluster size.
+    Resident: every cluster from the smallest whose band of p (3 floats a
+    pixel) fits a block's shared memory up to 16, trimmed (so one size may
+    stand for several). Where p does not fit 16 CTAs, the streamed plan of
+    16 alone."""
+    budget = SMEM_PER_BLOCK - _STATIC_SMEM
+    fits = [c for c in range(1, MAX_CLUSTER + 1)
+            if 24 * W + 12 * -(-H // c) * W <= budget]
+    if not fits:
+        return [_plan_with(H, W, MAX_CLUSTER, False)]
+    plans = {}
+    for c in range(fits[0], MAX_CLUSTER + 1):
+        plan = _plan_with(H, W, c, True)
+        plans[plan.cluster] = plan
+    return list(plans.values())
+
+
+def pcg_plan(B: int, H: int, W: int,
+             active: Callable[[PcgPlan], int]) -> PcgPlan:
+    """The cluster kernel's plan for B problems of H×W, given `active`: how
+    many clusters of a candidate plan the card holds at once.
+
+    Among ``candidate_plans(H, W)`` it takes the largest cluster of which
+    the card holds all B at once: one wave. Where none does, the plan with
+    the fewest waves ⌈B / active⌉, the larger cluster on a tie. A plan of
+    which no cluster fits (active 0) is never taken while another fits."""
+    plans = candidate_plans(H, W)
+    if len(plans) == 1:
+        return plans[0]
+    B = max(B, 1)
+    runs = [(plan, n) for plan in plans if (n := active(plan)) > 0]
+    if not runs:
+        return plans[-1]
+    return min(runs, key=lambda pn: (-(-B // pn[1]), -pn[0].cluster))[0]
 
 
 def tall_kernel_enabled() -> bool:
@@ -221,18 +245,26 @@ def pcg_fixed(b, pre, s, c, vmasks, fitmask, wf2, wr2, iters: int,
     """δ (B,3,H,W) after `iters` PCG iterations (see ``pcg_fixed_plain`` for
     the arguments). CPU tensors run the plain version; CUDA tensors run the
     cluster kernel in one launch on the current stream, without
-    synchronising, with ``pcg_plan``'s plan, in the tall layout when `tall`
+    synchronising, with ``card_plan``'s plan, in the tall layout when `tall`
     (None: ``tall_kernel_enabled()``)."""
     if b.device.type == "cpu":
         return pcg_fixed_plain(b, pre, s, c, vmasks, fitmask, wf2, wr2, iters)
     if b.device.type != "cuda":
         raise ValueError(f"pcg_fixed: no kernel for device {b.device}")
+    tall = tall_kernel_enabled() if tall is None else bool(tall)
+    B, _, H, W = b.shape
+    return _launch(card_plan(B, H, W, tall, b.device), b, pre, s, c, vmasks,
+                   fitmask, wf2, wr2, iters, tall)
+
+
+def _launch(plan: PcgPlan, b, pre, s, c, vmasks, fitmask, wf2, wr2,
+            iters: int, tall: bool) -> torch.Tensor:
+    """One launch of the cluster kernel with `plan` on CUDA tensors (the
+    body of ``pcg_fixed``; ``chip_smoke.py`` also times other plans)."""
     from .. import _build
 
     B, H, W, iters, w = _kernel_operands("pcg_fixed", b, pre, s, c, vmasks,
                                          fitmask, wf2, wr2, iters)
-    tall = tall_kernel_enabled() if tall is None else bool(tall)
-    plan = pcg_plan(B, H, W)
     lib = _build.load("pcg")
     delta = torch.empty_like(b)
     # device-memory scratch for the planes the plan keeps off the chip
@@ -253,45 +285,27 @@ def pcg_fixed(b, pre, s, c, vmasks, fitmask, wf2, wr2, iters: int,
     return delta
 
 
-def active_clusters(B: int, H: int, W: int, tall: bool = False) -> int:
-    """How many clusters of ``pcg_plan(B, H, W)`` the current CUDA device
-    holds at once (cudaOccupancyMaxActiveClusters); 0 means the plan cannot
-    run."""
+def active_clusters(plan: PcgPlan, B: int, W: int, tall: bool = False,
+                    device=None) -> int:
+    """How many clusters of `plan` (for B problems of width W) the CUDA
+    device holds at once (cudaOccupancyMaxActiveClusters; default: the
+    current device); 0 means the plan cannot run."""
     from .. import _build
 
-    plan = pcg_plan(B, H, W)
     lib = _build.load("pcg")
-    n = lib.pcg_active_clusters(
-        B, W, plan.cluster, int(plan.resident), plan.groups, plan.smem_bytes,
-        int(tall), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        n = lib.pcg_active_clusters(
+            B, W, plan.cluster, int(plan.resident), plan.groups,
+            plan.smem_bytes, int(tall), ctypes.c_void_p(stream))
     if n < 0:
         _raise_on("active_clusters", lib, -n)
     return n
 
 
-def _pcg_fixed_three_pass(b, pre, s, c, vmasks, fitmask, wf2, wr2,
-                          iters: int) -> torch.Tensor:
-    """The earlier three-pass form of the kernel (standard layout, 1 +
-    3·iters launches a call): the yardstick that ``chip_smoke.py`` times
-    beside ``pcg_fixed``. CPU tensors run the plain version. Not counted."""
-    if b.device.type == "cpu":
-        return pcg_fixed_plain(b, pre, s, c, vmasks, fitmask, wf2, wr2, iters)
-    if b.device.type != "cuda":
-        raise ValueError(f"_pcg_fixed_three_pass: no kernel for {b.device}")
-    from .. import _build
-
-    B, H, W, iters, w = _kernel_operands("_pcg_fixed_three_pass", b, pre, s,
-                                         c, vmasks, fitmask, wf2, wr2, iters)
-    lib = _build.load("pcg")
-    delta, r, p, ap = (torch.empty_like(b) for _ in range(4))
-    part = torch.empty((3, B, lib.pcg_three_pass_nblk(H, W)),
-                       dtype=torch.float32, device=b.device)
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream(b.device).cuda_stream
-        err = lib.pcg_three_pass_f32(
-            *(_ptr(t) for t in (b, pre, s, c, vmasks, fitmask, w, delta, r,
-                                p, ap, part)),
-            B, H, W, iters, ctypes.c_void_p(stream),
-        )
-    _raise_on("_pcg_fixed_three_pass", lib, err)
-    return delta
+@functools.cache
+def card_plan(B: int, H: int, W: int, tall: bool, device) -> PcgPlan:
+    """``pcg_plan`` on a CUDA device: each candidate plan's active clusters
+    queried there, once per (B, H, W, layout, device)."""
+    return pcg_plan(B, H, W, lambda plan: active_clusters(plan, B, W, tall,
+                                                          device))

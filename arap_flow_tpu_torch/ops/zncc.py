@@ -11,7 +11,9 @@ Three parts:
   CUDA tensor goes to the hand-written kernel in ``csrc/zncc.cu`` (built on
   first use by ``_build``) or raises. There is no fallback between them.
 - ``LAUNCHES``: launch counts; the wrapper adds one each time it launches
-  the CUDA kernel (one call z-scores and searches the whole batch).
+  the CUDA kernels (one call z-scores and searches the whole batch, with a
+  second pass that reduces the splits of the offset range where the
+  library splits it to fill the card).
 
 Planes come batched: p1 holds N1 reference planes and p2 N2 = N1·G search
 planes; p2's plane b is searched against p1's plane b // G. The result is
@@ -22,6 +24,7 @@ dy-major raster order, from −r, whose score beats every earlier one.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -121,6 +124,23 @@ def zncc_search_plain(p1: torch.Tensor, p2: torch.Tensor, radius: int,
     return tuple(t[0] for t in out) if single else out
 
 
+@functools.cache
+def _splits(lib, N2: int, H: int, W: int, radius: int, device) -> int:
+    """How many dy ranges the library splits this search into (asked once
+    per shape and device)."""
+    n = lib.zncc_search_splits(N2, H, W, radius)
+    if n < 0:
+        _raise_on(lib, -n, radius)
+    return n
+
+
+def _raise_on(lib, err: int, radius: int) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"zncc_search: CUDA error {err}: "
+            f"{lib.zncc_error_string(err).decode()} (radius {radius})")
+
+
 def zncc_search(p1: torch.Tensor, p2: torch.Tensor, radius: int,
                 patch: int = 12):
     """Fused z-score + ZNCC search (see ``zncc_search_plain`` for the
@@ -141,17 +161,24 @@ def zncc_search(p1: torch.Tensor, p2: torch.Tensor, radius: int,
     N1, H, W = b1.shape
     N2 = b2.shape[0]
     lib = _build.load("zncc")
-    z1 = torch.empty_like(b1)
-    z2, du, dv, sc = (torch.empty_like(b2) for _ in range(4))
     with torch.cuda.device(dev):
+        splits = _splits(lib, N2, H, W, int(radius), dev)
+        du, dv, sc = torch.empty((3, N2, H, W), dtype=torch.float32,
+                                 device=dev)
+        # z1, z2, then the per-split (score, offset index) pairs when the
+        # dy range is split
+        scratch = torch.empty(
+            (N1 + N2 * (1 + (2 * splits if splits > 1 else 0))) * H * W,
+            dtype=torch.float32, device=dev)
+        z1 = scratch.data_ptr()
+        z2 = z1 + 4 * N1 * H * W
+        part = z2 + 4 * N2 * H * W if splits > 1 else 0
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.zncc_search_f32(
-            *(ctypes.c_void_p(t.data_ptr()) for t in (b1, b2, z1, z2, du, dv,
-                                                       sc)),
-            N1, N2, H, W, int(radius), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"zncc_search: CUDA error {err}: "
-            f"{lib.zncc_error_string(err).decode()} (radius {radius})")
+            *(ctypes.c_void_p(ptr) for ptr in (
+                b1.data_ptr(), b2.data_ptr(), z1, z2, du.data_ptr(),
+                dv.data_ptr(), sc.data_ptr(), part)),
+            N1, N2, H, W, int(radius), splits, ctypes.c_void_p(stream))
+    _raise_on(lib, err, radius)
     LAUNCHES["zncc_search"] += 1
     return (du[0], dv[0], sc[0]) if single else (du, dv, sc)

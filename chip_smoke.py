@@ -10,18 +10,19 @@ Phases, each reported on its own line; any failure exits non-zero:
    (pcg, zncc, fused_solver), one nvcc process per source, all started
    together, and loads them.
 2. PCG kernel vs plain: for each shape, the cluster kernel's plan
-   (``pcg_plan``: CTAs a problem, rows a CTA, resident or streamed, planes
-   in shared memory) and how many of its clusters the card holds at once
-   (cudaOccupancyMaxActiveClusters, both layouts); then ``pcg_fixed``
-   (CUDA) in both layouts, standard and tall, against ``pcg_fixed_plain``
-   on the same numpy-seeded problems, on the card: 1 iteration to
-   rtol/atol 1e-4; at 160 iterations both converged (‖b − JtJ·δ‖ ≤
-   1e-5·‖b‖ for every problem) with max |Δδ| < 0.01; two kernel runs
-   bitwise equal; the tall layout within 1e-5 of the standard one. The
+   (``card_plan``: CTAs a problem, rows a CTA, resident or streamed, planes
+   in shared memory), how many of its clusters the card holds at once
+   (cudaOccupancyMaxActiveClusters, both layouts) and the waves; then
+   ``pcg_fixed`` (CUDA) in both layouts, standard and tall, against
+   ``pcg_fixed_plain`` on the same numpy-seeded problems, on the card: 1
+   iteration to rtol/atol 1e-4; at 160 iterations both converged (‖b −
+   JtJ·δ‖ ≤ 1e-5·‖b‖ for every problem) with max |Δδ| < 0.01; two kernel
+   runs bitwise equal; the tall layout within 1e-5 of the standard one. The
    shapes cover both memory plans (384×640 the largest resident one,
    480×854 and 512×896 streamed). Then ms per 400-iteration call of the
-   cluster kernel beside the three-pass yardstick
-   (``_pcg_fixed_three_pass``), the tall layout and the plain version.
+   cluster kernel beside the tall layout and the plain version, and the
+   pipeline's largest chunk (B = 24 64×128) at the earlier 5-CTA plan
+   against ``pcg_plan``'s one-wave plan, in turns.
 2b. solve_batch: 4 numpy-seeded 192×256 problems (the pipeline's chunk
    shape) at 3×2×60 against per-problem solves (1e-4) and against the
    plain version on the CPU (max |Δflow| < 0.05 px, median < 0.005 px),
@@ -34,10 +35,12 @@ Phases, each reported on its own line; any failure exits non-zero:
    against the segments' analytic rigid motion; launch counts checked.
 4. ZNCC kernel vs plain: ``zncc_search`` (CUDA) against
    ``zncc_search_plain`` at the matcher's shapes for an 854×480 sub-batch
-   of 4 pairs and at a ragged small shape: scores within 2e-4, (du, dv)
-   equal on ≥ 99% of pixels and elsewhere only where the plain scores of
-   the two offsets tie within 2e-4, two kernel runs bitwise equal; ms per
-   call of both.
+   of 4 pairs, the 104-plane coarse bank of STRETCH_HYPOTHESES, a coarse
+   search at r = 60 and two ragged small shapes: scores within 2e-4, (du,
+   dv) equal on ≥ 99% of pixels and elsewhere only where the plain scores
+   of the two offsets tie within 2e-4, two kernel runs bitwise equal; ms
+   per call of the kernel at every shape, and of the plain version at the
+   matcher's.
 5. dataset pipeline: ``para_gen.main_pipeline`` (batched, multseg, 19×8×400)
    on a synthetic tree of 5 frames at 854×480 with two objects moving by
    known translations, written with the port's PNG codec: 4 pairs, one
@@ -305,31 +308,84 @@ def check_pcg_layout(ops, args, tall: bool, plain1, plain_n, shape):
 
 
 def plan_line(B: int, H: int, W: int) -> str:
-    """The cluster kernel's plan at (B, H, W) and its active clusters on
-    this card in both layouts."""
-    from arap_flow_tpu_torch.ops.pcg import active_clusters, pcg_plan
+    """The cluster kernel's plan at (B, H, W) in both layouts and its active
+    clusters on this card."""
+    import torch
 
-    plan = pcg_plan(B, H, W)
-    act = [active_clusters(B, H, W, tall=t) for t in (False, True)]
+    from arap_flow_tpu_torch.ops.pcg import active_clusters, card_plan
+
+    dev = torch.device("cuda", 0)
+    plans = [card_plan(B, H, W, t, dev) for t in (False, True)]
+    act = [active_clusters(p, B, W, t, dev)
+           for p, t in zip(plans, (False, True))]
     if min(act) <= 0:
-        raise AssertionError(f"no cluster of {plan} fits the card")
+        raise AssertionError(f"no cluster of {plans} fits the card")
+    plan = plans[0]
+    tall = "" if plans[1] == plan else f", tall cluster {plans[1].cluster}"
     return (f"phase 2 plan B={B} {H}x{W}: cluster {plan.cluster}, "
             f"{plan.rows_per_cta} rows a CTA, "
             f"{'resident' if plan.resident else 'streamed'}, "
             f"{plan.groups} groups in shared memory, {plan.smem_bytes} B; "
-            f"active clusters {act[0]} (tall {act[1]})")
+            f"active clusters {act[0]} (tall {act[1]}{tall}), "
+            f"{-(-B // act[0])} wave(s)")
+
+
+# The pipeline's largest chunk and the plan the earlier rule gave it: the
+# cluster raised toward 132 SMs // 24 problems = 5 CTAs, of which the card
+# holds 22 at once, so 24 problems ran in two waves.
+WAVE_SHAPE = (24, 64, 128)
+WAVE_OLD_CLUSTER = 5
+
+
+def phase_waves(smi: str) -> None:
+    """The pipeline's largest chunk at the earlier 5-CTA plan and at
+    ``pcg_plan``'s plan, in turns (old, new, new, old): ms a 400-iteration
+    call, active clusters and waves of each. The new plan must hold the
+    whole batch at once, and its δ after one iteration must agree with the
+    old plan's to rtol/atol 1e-4 (the cluster size changes only the order
+    of the α and β sums)."""
+    import torch
+
+    from arap_flow_tpu_torch.ops import pcg as TP
+
+    dev = torch.device("cuda", 0)
+    B, H, W = WAVE_SHAPE
+    new = TP.card_plan(B, H, W, False, dev)
+    old = next(p for p in TP.candidate_plans(H, W)
+               if p.cluster == WAVE_OLD_CLUSTER)
+    _, args = pcg_problem(B, H, W, seed=7, device=dev)
+    d_old = TP._launch(old, *args, 1, False)
+    d_new = TP._launch(new, *args, 1, False)
+    torch.testing.assert_close(d_new, d_old, rtol=1e-4, atol=1e-4)
+    d = float((d_new - d_old).abs().max())
+    ms = {}
+    for name, plan in (("old", old), ("new", new), ("new", new),
+                       ("old", old)):
+        ms.setdefault(name, []).append(
+            cuda_ms(lambda: TP._launch(plan, *args, 400, False)))
+    parts = []
+    for name, plan in (("old", old), ("new", new)):
+        act = TP.active_clusters(plan, B, W, False, dev)
+        t = float(np.median(ms[name]))
+        parts.append(f"{name} plan cluster {plan.cluster} ({plan.groups} "
+                     f"groups): active clusters {act}, {-(-B // act)} "
+                     f"wave(s), {t:.3f} ms ({t * 2.5:.2f} us an iteration; "
+                     f"runs {', '.join(f'{v:.3f}' for v in ms[name])})")
+    line = (f"phase 2 waves B={B} {H}x{W} 400 iterations: " + "; ".join(parts)
+            + f"; 1-iteration max|d old - new| {d:.3g} ({smi})")
+    say(line)
+    if TP.active_clusters(new, B, W, False, dev) < B:
+        raise AssertionError(line)
 
 
 def phase_kernel(shapes, call_shapes):
     """Kernel in both layouts vs plain on the card at each (B, H, W), with
     its plan. Returns the largest 1-iteration |difference| of each layout
     and, for each of `call_shapes`, the median ms of one 400-iteration call
-    of the kernel, the plain version, the tall kernel and the three-pass
-    yardstick."""
+    of the kernel, the plain version and the tall kernel."""
     import torch
 
-    from arap_flow_tpu_torch.ops.pcg import (_pcg_fixed_three_pass,
-                                             pcg_fixed, pcg_fixed_plain)
+    from arap_flow_tpu_torch.ops.pcg import pcg_fixed, pcg_fixed_plain
 
     dev = torch.device("cuda", 0)
     max_err = max_err_tall = 0.0
@@ -356,14 +412,12 @@ def phase_kernel(shapes, call_shapes):
     for B, H, W in call_shapes:
         _, args = pcg_problem(B, H, W, seed=7, device=dev)
         ms = cuda_ms(lambda: pcg_fixed(*args, 400, tall=False))
-        three_ms = cuda_ms(lambda: _pcg_fixed_three_pass(*args, 400))
         tall_ms = cuda_ms(lambda: pcg_fixed(*args, 400, tall=True))
         plain_ms = cuda_ms(lambda: pcg_fixed_plain(*args, 400), reps=3)
-        call_ms[(B, H, W)] = (ms, plain_ms, tall_ms, three_ms)
+        call_ms[(B, H, W)] = (ms, plain_ms, tall_ms)
         bms, by = pcg_bound(B, H, W)
         say(f"phase 2 one 400-iteration call at B={B} {H}x{W}: cluster "
-            f"kernel {ms:.3f} ms ({ms * 2.5:.2f} us an iteration), three-pass "
-            f"{three_ms:.3f} ms ({three_ms * 2.5:.2f} us an iteration), tall "
+            f"kernel {ms:.3f} ms ({ms * 2.5:.2f} us an iteration), tall "
             f"{tall_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms "
             f"({by})")
     return max_err, max_err_tall, call_ms
@@ -733,12 +787,38 @@ def plain_score_at(p1, p2, r, du, dv, where):
 # of 8 lanes x 5 hypotheses at r = 13, then one refine per level at r = 2.
 ZNCC_MAIN_SHAPES = ((8, 40, 60, 106, 13), (8, 8, 120, 213, 2),
                     (8, 8, 240, 427, 2), (8, 8, 480, 854, 2))
-ZNCC_RAGGED = (3, 6, 45, 70, 7)
+# Beside them: the coarse bank of the 13 STRETCH_HYPOTHESES, the largest
+# coarse radius clamp_match_params allows at 854x480 (60), and two ragged
+# shapes (planes smaller than a warp's 21x32 tile, odd sizes).
+ZNCC_OTHER_SHAPES = ((8, 104, 60, 106, 13), (8, 40, 60, 106, 60),
+                     (3, 6, 45, 70, 7), (1, 3, 19, 37, 5))
+
+
+def zncc_device_ms(fn) -> dict:
+    """Device ms by kernel of one `fn()` call under torch.profiler (after a
+    warm-up call): the z-score, search and reduce kernels of ``zncc.cu``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"zscore": 0.0, "search": 0.0, "reduce": 0.0}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k in out:
+                if f"{k}_kernel" in e.name:
+                    out[k] += e.time_range.elapsed_us() / 1e3
+    return out
 
 
 def phase_zncc():
-    """ZNCC kernel vs plain at the matcher's shapes and a ragged one.
-    Returns (max |score difference|, kernel ms, plain ms, bound ms, bound_by)
+    """ZNCC kernel vs plain at the matcher's shapes and the others. Returns
+    (max |score difference|, kernel ms, plain ms, bound ms, bound_by)
     summed over the four searches of one main-path matcher call."""
     import torch
 
@@ -748,7 +828,7 @@ def phase_zncc():
     max_err = 0.0
     totals = [0.0, 0.0, 0.0]
     by = {}
-    for N1, N2, H, W, r in (*ZNCC_MAIN_SHAPES, ZNCC_RAGGED):
+    for N1, N2, H, W, r in (*ZNCC_MAIN_SHAPES, *ZNCC_OTHER_SHAPES):
         a, b = zncc_inputs(N1, N2, H, W, r, seed=H + W + r)
         p1, p2 = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
         ku, kv, ks = zncc_search(p1, p2, r)
@@ -771,15 +851,18 @@ def phase_zncc():
         if not (err <= 2e-4 and agree >= 0.99 and tie <= 2e-4):
             raise AssertionError(line)
         max_err = max(max_err, err)
+        ms = cuda_ms(lambda: zncc_search(p1, p2, r))
+        dev_ms = zncc_device_ms(lambda: zncc_search(p1, p2, r))
+        bms, b_by = zncc_bound(N1, N2, H, W, r)
+        line += (f"; kernel {ms:.4f} ms a call (device: "
+                 + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items())
+                 + f" ms), bound {bms:.4f} ms ({b_by})")
         if (N1, N2, H, W, r) in ZNCC_MAIN_SHAPES:
-            ms = cuda_ms(lambda: zncc_search(p1, p2, r))
             plain_ms = cuda_ms(lambda: zncc_search_plain(p1, p2, r), reps=3)
-            bms, b_by = zncc_bound(N1, N2, H, W, r)
             for i, v in enumerate((ms, plain_ms, bms)):
                 totals[i] += v
             by[b_by] = by.get(b_by, 0.0) + bms
-            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-                     f"{bms:.4f} ms ({b_by})")
+            line += f", plain {plain_ms:.3f} ms"
         say(line)
     say(f"phase 4 one matcher call's four searches: kernel {totals[0]:.4f} "
         f"ms, plain {totals[1]:.3f} ms, bound {totals[2]:.4f} ms")
@@ -1214,7 +1297,8 @@ def main() -> int:
     max_err, tall_err, call_ms = phase_kernel(
         [*KERNEL_SHAPES, *main_shapes],
         [PIPE_PCG_SHAPE, *main_shapes, *TIMED_SHAPES])
-    ms, plain_ms, tall_ms, _ = call_ms[PIPE_PCG_SHAPE]
+    ms, plain_ms, tall_ms = call_ms[PIPE_PCG_SHAPE]
+    phase_waves(smi)
     tall_launches = phase_solve_batch(smi)
     small_reference_check()
     launches, pair_flows, pair_secs = phase_main_path(smi, probs, tasks,

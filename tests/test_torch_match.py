@@ -1,7 +1,10 @@
 """The port's matcher against the JAX package's: the ZNCC search (plain
 version and wrapper) against ``_search(_zscore(·))`` and the Pallas kernel
 in interpret mode, the pyramid flow, the device grid selection, the host
-selection and the full ``match_images``, on numpy-seeded inputs.
+selection and the full ``match_images``, on numpy-seeded inputs: shifts,
+and the warps of tests/test_matching.py (rotation, scale, non-rigid, 25°
+through the hypotheses, the 60% stretch and its identity-only control)
+with that file's recovery gates.
 
 Tolerances: scores within 2e-4 and the same argmax on > 97% of pixels
 (tests/test_pallas_match.py: the box sums are taken in another order, so
@@ -185,6 +188,111 @@ def test_match_images_matches_jax(case):
     _compare_matches(j, t)
     if case.get("roi"):
         assert np.all(roi[t[:, 1].astype(int), t[:, 0].astype(int)] != 0)
+
+
+def _warp_bilinear(im, mapx, mapy):
+    """tests/test_matching.py's inverse-map bilinear warp (edge clamp)."""
+    H, W = im.shape[:2]
+    x0 = np.clip(np.floor(mapx).astype(int), 0, W - 1)
+    y0 = np.clip(np.floor(mapy).astype(int), 0, H - 1)
+    x1 = np.minimum(x0 + 1, W - 1)
+    y1 = np.minimum(y0 + 1, H - 1)
+    fx = np.clip(mapx - x0, 0, 1)[..., None]
+    fy = np.clip(mapy - y0, 0, 1)[..., None]
+    out = (im[y0, x0] * (1 - fx) * (1 - fy) + im[y0, x1] * fx * (1 - fy)
+           + im[y1, x0] * (1 - fx) * fy + im[y1, x1] * fx * fy)
+    return out.astype(im.dtype)
+
+
+def _about_centre(H, W, a, b, c, d):
+    """Forward and inverse maps of the linear map [[a, b], [c, d]] about the
+    frame's centre."""
+    cy, cx = H / 2, W / 2
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    X, Y = xx - cx, yy - cy
+    det = a * d - b * c
+    return ((a * X + b * Y + cx, c * X + d * Y + cy),
+            ((d * X - b * Y) / det + cx, (-c * X + a * Y) / det + cy))
+
+
+def _warp_case(name):
+    """(im1, im2, forward map, match_images keywords) of the warps of
+    tests/test_matching.py: 5° rotation, 8% scale, the sinusoidal non-rigid
+    warp, 25° through the rotation hypotheses and the 60% stretch."""
+    if name in ("rotation-5", "rotation-25"):
+        H, W, seed = 128, 160, 7 if name == "rotation-5" else 10
+        th = np.deg2rad(5.0 if name == "rotation-5" else 25.0)
+        fwd, inv = _about_centre(H, W, np.cos(th), -np.sin(th), np.sin(th),
+                                 np.cos(th))
+        kw = dict(radius=16 if name == "rotation-5" else 40, levels=2)
+    elif name == "scale-8":
+        H, W, seed = 128, 160, 8
+        fwd, inv = _about_centre(H, W, 1.08, 0.0, 0.0, 1.08)
+        kw = dict(radius=16, levels=2)
+    elif name == "nonrigid":
+        H, W, seed = 128, 160, 9
+        yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+        ux = 3.0 * np.sin(2 * np.pi * yy / 45.0)
+        vy = 2.5 * np.cos(2 * np.pi * xx / 50.0)
+        fwd, inv = (xx + ux, yy + vy), (xx - ux, yy - vy)
+        kw = dict(radius=16, levels=2)
+    else:  # "stretch-60" and its identity-only control
+        H, W, seed = 128, 192, 13
+        fwd, inv = _about_centre(H, W, 1.6, 0.0, 0.0, 1.6)
+        kw = dict(radius=48, levels=2, rotations=(
+            JM.STRETCH_HYPOTHESES if name == "stretch-60" else (0.0,)))
+    im1 = _texture(H, W, seed)
+    return im1, _warp_bilinear(im1, *inv), fwd, dict(kw, stride=4)
+
+
+def _recovery(m, fwd, margin):
+    """End-point errors of the matches with a source at least `margin` px
+    inside the frame against the forward map, and those matches' count."""
+    fx, fy = fwd
+    H, W = fx.shape
+    x1, y1 = m[:, 0].astype(int), m[:, 1].astype(int)
+    keep = ((x1 >= margin) & (x1 < W - margin) & (y1 >= margin)
+            & (y1 < H - margin))
+    m, x1, y1 = m[keep], x1[keep], y1[keep]
+    err = np.hypot(m[:, 2] - m[:, 0] - (fx[y1, x1] - x1),
+                   m[:, 3] - m[:, 1] - (fy[y1, x1] - y1))
+    return err, len(m)
+
+
+@pytest.mark.parametrize("name", ["rotation-5", "scale-8", "nonrigid",
+                                  "rotation-25", "stretch-60",
+                                  "stretch-60-identity-only"])
+def test_match_images_warps_match_jax(name):
+    """tests/test_matching.py's warps through both matchers: the port's
+    matches held to the JAX package's (``_compare_matches``), then to the
+    JAX tests' own recovery gates."""
+    im1, im2, fwd, kw = _warp_case(name)
+    j = JM.match_images(im1, im2, **kw)
+    t = TM.match_images(im1, im2, device="cpu", **kw)
+    _compare_matches(j, t)
+    if name in ("rotation-5", "scale-8", "nonrigid"):
+        assert len(t) > 50
+        err, _ = _recovery(t, fwd, 12)
+        assert np.median(err) < 1.5, np.median(err)
+        assert (err < 2.0).mean() > 0.6, (err < 2.0).mean()
+    elif name == "rotation-25":
+        err, _ = _recovery(t, fwd, 0)
+        assert len(t) > 150, len(t)
+        assert np.median(err) < 1.5, np.median(err)
+        assert (err < 2.0).mean() > 0.7, (err < 2.0).mean()
+    else:
+        def median_and_count(m):
+            err, n = _recovery(m, fwd, 16)
+            return (float(np.median(err)) if n >= 10 else np.inf), n
+
+        med_s, n_s = median_and_count(
+            t if name == "stretch-60" else TM.match_images(
+                im1, im2, device="cpu",
+                **dict(kw, rotations=JM.STRETCH_HYPOTHESES)))
+        assert n_s > 50 and med_s < 2.0, (med_s, n_s)
+        if name != "stretch-60":  # the identity-only bank does measurably
+            med_id, n_id = median_and_count(t)  # worse: the bank recovers it
+            assert med_id > 2.0 * med_s or n_id <= 50, (med_id, n_id)
 
 
 def test_dispatch_multi_equals_per_pair():

@@ -158,23 +158,30 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-# (H, W) on the card: the resident plan (16×128: one row a CTA, every
-# plane in shared memory) and the streamed plan (480×854, the full frame)
-CARD_SHAPES = ((16, 128), (480, 854))
+# (B, H, W) on the card: the resident plan (16×128: one row a CTA, every
+# plane in shared memory), the streamed plan (480×854, the full frame) and
+# the pipeline's largest chunk (B = 24 64×128, one wave of 4-CTA clusters)
+CARD_SHAPES = ((1, 16, 128), (1, 480, 854), (24, 64, 128))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tall", [False, True], ids=["standard", "tall"])
-@pytest.mark.parametrize("H,W", CARD_SHAPES,
-                         ids=[f"{h}x{w}" for h, w in CARD_SHAPES])
-def test_kernel_matches_plain_on_card(cuda_device, H, W, tall):
+@pytest.mark.parametrize("B,H,W", CARD_SHAPES,
+                         ids=[f"B{b}-{h}x{w}" for b, h, w in CARD_SHAPES])
+def test_kernel_matches_plain_on_card(cuda_device, B, H, W, tall):
     """On the card: the CUDA kernel against its plain version (1 iteration
-    to 1e-4; both converged at 160 iterations; bitwise repeatable), in both
-    memory plans and both layouts, one launch a call."""
-    assert TP.pcg_plan(1, H, W).resident == ((H, W) == (16, 128))
-    ops, s, c, jtf, diag = _problem(H, W, seed=8)
-    _, args = _port_args(ops, s, c, jtf, diag)
-    args = [a.to(cuda_device) for a in args]
+    to 1e-4; every problem converged at 160 iterations; bitwise
+    repeatable), in both memory plans and both layouts, one launch a call;
+    the card holds the whole batch at once."""
+    plan = TP.card_plan(B, H, W, tall, cuda_device)
+    assert plan.resident == ((H, W) != (480, 854))
+    assert TP.active_clusters(plan, B, W, tall, cuda_device) >= B
+    probs = [_problem(H, W, seed=8 + k) for k in range(B)]
+    ports = [_port_args(*p)[1] for p in probs]
+    args = [torch.cat([a[k] for a in ports]).to(cuda_device)
+            for k in range(6)]
+    args += [torch.stack([torch.as_tensor(a[k]).reshape(()) for a in ports])
+             .to(cuda_device) for k in (6, 7)]
     key = "pcg_fixed_tall" if tall else "pcg_fixed"
     n0 = TP.LAUNCHES[key]
     torch.testing.assert_close(TP.pcg_fixed(*args, 1, tall=tall),
@@ -183,6 +190,7 @@ def test_kernel_matches_plain_on_card(cuda_device, H, W, tall):
     k = TP.pcg_fixed(*args, CONVERGED_ITERS, tall=tall)
     assert torch.equal(k, TP.pcg_fixed(*args, CONVERGED_ITERS, tall=tall))
     plain = TP.pcg_fixed_plain(*args, CONVERGED_ITERS)
-    _assert_converged(k[0].cpu().numpy(), plain[0].cpu().numpy(), ops, s, c,
-                      jtf)
+    for i, (ops, s, c, jtf, _) in enumerate(probs):
+        _assert_converged(k[i].cpu().numpy(), plain[i].cpu().numpy(), ops, s,
+                          c, jtf)
     assert TP.LAUNCHES[key] == n0 + 3

@@ -2,11 +2,13 @@
 every crop bucket and the full frame, and the CPU routes of the kernel
 wrappers (the plain version, bitwise, and not counted).
 
-The plan is pure Python, so it is checked here for every shape the solver
-can hand the kernel: the CTAs' bands cover the rows exactly once, a
+The plan is pure Python given the card's active clusters of each candidate
+plan, so it is checked here for every shape the solver can hand the kernel,
+with those counts injected: the CTAs' bands cover the rows exactly once, a
 cluster has at most 16 CTAs, the resident plan fits the shared memory one
-block of an H100 can use, and the two shapes whose p does not fit 16 CTAs
-take the streamed plan.
+block of an H100 can use, the two shapes whose p does not fit 16 CTAs take
+the streamed plan, and the cluster is the largest of which the card holds
+the whole batch at once (else the fewest waves).
 """
 
 import numpy as np
@@ -20,11 +22,33 @@ FULL_FRAME = (480, 854)
 SHAPES = (*CROP_BUCKETS, FULL_FRAME)
 STREAMED = {(512, 896), FULL_FRAME}
 
+# Active clusters by cluster size, shaped like an H100's
+# (cudaOccupancyMaxActiveClusters of the kernel, one CTA an SM): 7 of 16
+# CTAs and 22 of 5 as measured; never more CTAs than the card's 132 SMs.
+H100_LIKE = {1: 132, 2: 66, 3: 40, 4: 32, 5: 22, 6: 20, 7: 16, 8: 16, 9: 14,
+             10: 12, 11: 11, 12: 10, 13: 9, 14: 8, 15: 8, 16: 7}
+SMS = 132
+
+
+def h100_like(plan):
+    return H100_LIKE[plan.cluster]
+
+
+def old_rule(B, H, W):
+    """The rule this one replaced: the cluster raised toward 132 // B, from
+    the smallest resident cluster up to 16."""
+    plans = TP.candidate_plans(H, W)
+    if len(plans) == 1:
+        return plans[0]
+    want = min(TP.MAX_CLUSTER, max(plans[0].cluster, SMS // max(B, 1)))
+    return max((p for p in plans if p.cluster <= want),
+               key=lambda p: p.cluster)
+
 
 @pytest.mark.parametrize("B", [1, 4, 24])
 @pytest.mark.parametrize("H,W", SHAPES, ids=[f"{h}x{w}" for h, w in SHAPES])
 def test_plan(B, H, W):
-    plan = TP.pcg_plan(B, H, W)
+    plan = TP.pcg_plan(B, H, W, h100_like)
     assert 1 <= plan.cluster <= TP.MAX_CLUSTER
     bands = [(k * plan.rows_per_cta, min(H, (k + 1) * plan.rows_per_cta))
              for k in range(plan.cluster)]
@@ -36,18 +60,64 @@ def test_plan(B, H, W):
     assert plan.resident == ((H, W) not in STREAMED)
     if plan.resident:
         assert plan.smem_bytes >= 12 * plan.rows_per_cta * W  # p's band
+        # one wave wherever a candidate gives one
+        assert H100_LIKE[plan.cluster] >= B or all(
+            H100_LIKE[p.cluster] < B for p in TP.candidate_plans(H, W))
     else:
         assert plan.cluster == TP.MAX_CLUSTER
 
 
-def test_plan_fills_the_card_at_small_batch():
-    """The cluster grows toward SMS // B: B = 1 and 4 take 16 CTAs a
-    problem, the 24-problem chunk of the smallest bucket 5 (120 CTAs), and
-    a batch of more problems than SMs one CTA each."""
-    assert TP.pcg_plan(1, 64, 128).cluster == 16
-    assert TP.pcg_plan(4, 192, 256).cluster == 16
-    assert TP.pcg_plan(24, 64, 128).cluster == TP.SMS // 24
-    assert TP.pcg_plan(200, 64, 128).cluster == 1
+@pytest.mark.parametrize("B,H,W,cluster", [
+    (1, 64, 128, 16), (4, 192, 256, 16), (24, 64, 128, 4),
+    (24, 192, 256, 4), (8, 192, 256, 15), (72, 16, 128, 1),
+    (200, 64, 128, 1)])
+def test_plan_takes_the_largest_one_wave_cluster(B, H, W, cluster):
+    """With an H100's counts: B = 1 and 4 keep 16 CTAs a problem (7
+    clusters of 16 fit), the 24-problem chunk takes 4 (22 clusters of 5
+    would run in two waves), 8 problems take 8, 72 one-row problems one
+    CTA each, and 200 problems (no one-wave plan) the fewest waves."""
+    assert TP.pcg_plan(B, H, W, h100_like).cluster == cluster
+
+
+@pytest.mark.parametrize("B,counts,cluster", [
+    # no size holds the batch at once: the fewest waves
+    (40, {c: 20 // c for c in range(1, 17)}, 1),
+    (30, {1: 5, 2: 10, 4: 16, 8: 4, 16: 2}, 4),
+    # a tie in waves goes to the larger cluster
+    (50, {1: 30, 2: 25, 4: 12, 8: 6, 16: 3}, 2),
+    # a plan of which no cluster fits is never taken
+    (3, {1: 0, 2: 0, 4: 0, 8: 1, 16: 0}, 8),
+], ids=["fewest-waves", "fewest-waves-mid", "tie-larger", "skip-zero"])
+def test_plan_without_a_one_wave_cluster(B, counts, cluster):
+    """16×128 problems (among the trimmed sizes 1, 2, 4, 8 and 16), with
+    injected counts."""
+    def active(plan):
+        return counts.get(plan.cluster, 0)
+
+    assert TP.pcg_plan(B, 16, 128, active).cluster == cluster
+
+
+# (B, H, W) that the old rule ran in one wave with an H100's counts
+ONE_WAVE_BEFORE = [
+    (B, H, W) for B in (1, 4, 24, 72) for H, W in (*SHAPES, (16, 128))
+    if not old_rule(B, H, W).resident
+    or H100_LIKE[old_rule(B, H, W).cluster] >= B]
+
+
+@pytest.mark.parametrize("B,H,W", ONE_WAVE_BEFORE,
+                         ids=[f"B{b}-{h}x{w}" for b, h, w in ONE_WAVE_BEFORE])
+def test_plan_keeps_one_wave_plans_of_the_old_rule(B, H, W):
+    """Every shape that ran in one wave under the old rule keeps its plan
+    (B = 1 at every size, B = 4 192×256, B = 72 16×128 among them)."""
+    assert TP.pcg_plan(B, H, W, h100_like) == old_rule(B, H, W)
+
+
+def test_candidate_plans_are_trimmed_and_distinct():
+    plans = TP.candidate_plans(16, 128)
+    assert [p.cluster for p in plans] == [1, 2, 3, 4, 6, 8, 16]
+    assert [p.rows_per_cta for p in plans] == [16, 8, 6, 4, 3, 2, 1]
+    assert TP.candidate_plans(*FULL_FRAME) == [
+        TP.pcg_plan(24, *FULL_FRAME, lambda plan: 0)]
 
 
 def _problem(B=2, H=12, W=40, seed=0):
@@ -72,13 +142,3 @@ def test_cpu_route_is_plain_and_not_counted(tall):
                                TP.pcg_fixed_plain(*args, 11), rtol=0, atol=0)
     assert TP.LAUNCHES == before
 
-
-def test_three_pass_cpu_route_is_plain():
-    args = _problem(seed=1)
-    before = dict(TP.LAUNCHES)
-    torch.testing.assert_close(TP._pcg_fixed_three_pass(*args, 9),
-                               TP.pcg_fixed_plain(*args, 9), rtol=0, atol=0)
-    assert TP.LAUNCHES == before
-    meta = [a.to("meta") for a in args]
-    with pytest.raises(ValueError, match="no kernel"):
-        TP._pcg_fixed_three_pass(*meta, 3)
