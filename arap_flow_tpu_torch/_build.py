@@ -3,7 +3,8 @@
 Each source in ``csrc/`` is compiled on first use into its own library in
 ``_build/``, keyed by a hash of the source and the compiler flags, so an
 edited source rebuilds and an unchanged one loads at once. The missing
-libraries are compiled together, one nvcc process per source. The build runs
+libraries are compiled together, one nvcc process per source; the shared
+headers (``csrc/*.cuh``) are part of every library's key. The build runs
 only on a machine with the CUDA toolkit; nothing here runs at import time.
 """
 
@@ -40,10 +41,15 @@ def nvcc_path() -> str:
 
 
 def lib_path(source: str) -> str:
-    """Path of the library built from `source` with the current flags."""
+    """Path of the library built from `source` with the current flags. The
+    key hashes the source and every header in ``csrc/`` (any source may
+    include any of them), so editing a shared header rebuilds every
+    library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(osp.join(_SRC_DIR, source), "rb") as f:
-        h.update(source.encode() + b"\0" + f.read())
+    headers = sorted(f for f in os.listdir(_SRC_DIR) if f.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(osp.join(_SRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
     stem = osp.splitext(source)[0]
     return osp.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
@@ -98,11 +104,9 @@ def load(stem: str) -> ctypes.CDLL:
     elif stem == "fused_solver":
         lib.fused_error_string.argtypes = [i]
         lib.fused_error_string.restype = ctypes.c_char_p
-        lib.fused_solve_nchunk.argtypes = [i, i]
-        lib.fused_solve_nchunk.restype = i
-        lib.fused_solve_blocks.argtypes = [i, i, i]
-        lib.fused_solve_blocks.restype = i
-        lib.fused_solve_f32.argtypes = [vp] * 14 + [i] * 6 + [vp]
+        lib.fused_active_clusters.argtypes = [i] * 5 + [vp]
+        lib.fused_active_clusters.restype = i
+        lib.fused_solve_f32.argtypes = [vp] * 13 + [i] * 11 + [vp]
         lib.fused_solve_f32.restype = i
     elif stem == "zncc":
         lib.zncc_error_string.argtypes = [i]

@@ -1,7 +1,7 @@
 """The whole annealed schedule as one kernel (ops/pallas_solver.py of the JAX
 package): ``backend="fused"`` of ``ops.solver``.
 
-Three parts:
+Four parts:
 
 - ``anneal_solve_fused_plain``: the plain torch version of the TPU kernel
   ``_solve_kernel``, batched over a leading B, in that kernel's grouping:
@@ -9,26 +9,36 @@ Three parts:
   degree and the fit mask, each anneal step lerps the constraint image, each
   GN step linearises JtF and runs ``pcg_iters`` PCG iterations with the
   unfactored JtJ, then x += δ.
+- ``fused_plan``: the launch plan of the CUDA kernel for (B, H, W), pure
+  Python given the card's active clusters of each candidate plan:
+  ``ops.pcg.pcg_plan``'s rule over this kernel's own shared-memory groups
+  (s and c, r, Ap, δ, then x). ``card_plan`` fills in those counts from the
+  device and caches the plan.
 - ``anneal_solve_fused``: the wrapper. A CPU tensor goes to the plain
-  version; a CUDA tensor goes to the persistent cooperative kernel in
-  ``csrc/fused_solver.cu`` (one launch per call) or raises.
+  version; a CUDA tensor goes to the thread-block-cluster kernel in
+  ``csrc/fused_solver.cu`` (one cluster a problem runs the whole schedule,
+  one launch a call) or raises.
 - ``LAUNCHES``: the wrapper adds one each time it launches the kernel.
 
-The TPU kernel's VMEM gate (``fits_vmem``) has no counterpart: the
-cooperative kernel keeps its state in device memory, so no problem size is
-too large for it.
+The TPU kernel's VMEM gate (``fits_vmem``) has no counterpart: where a
+problem's state does not fit the cluster's shared memory, the cluster kernel
+keeps it in device memory (the streamed plan), so no problem size is too
+large for it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Callable
 
 import numpy as np
 import torch
 
 from ._checks import check_operand, per_problem, weight_pairs
 from .energy import ArapOperands
-from .pcg import _t_signfold
+from .pcg import (PcgPlan, _group_bytes, _ptr, _raise_on, _t_signfold,
+                  pcg_plan)
 from .stencil import DIRS, shift
 
 LAUNCHES: dict[str, int] = {"anneal_solve_fused": 0}
@@ -127,11 +137,53 @@ def anneal_solve_fused_plain(ops: ArapOperands, cfg) -> torch.Tensor:
     return x
 
 
+def _fused_group_bytes(rows: int, W: int) -> tuple[int, ...]:
+    """Shared-memory bytes of each optional group of the fused kernel, in
+    plan order: the PCG kernel's (s and c with halo rows, r, Ap, δ), then x
+    (3 planes, each with halo rows)."""
+    return (*_group_bytes(rows, W), 12 * rows * W + 24 * W)
+
+
+def fused_plan(B: int, H: int, W: int,
+               active: Callable[[PcgPlan], int]) -> PcgPlan:
+    """The fused kernel's plan for B problems of H×W, given `active`: how
+    many clusters of a candidate plan the card holds at once. The rule is
+    ``pcg_plan``'s: the largest cluster (up to 16 CTAs) of which the card
+    holds the whole batch at once, else the fewest waves; p's band in
+    shared memory where it fits 16 CTAs (else the streamed plan), then the
+    groups s and c, r, Ap, δ and x as far as they fit."""
+    return pcg_plan(B, H, W, active, _fused_group_bytes)
+
+
+def active_clusters(plan: PcgPlan, B: int, device=None) -> int:
+    """How many clusters of `plan` (for B problems) the CUDA device holds at
+    once (cudaOccupancyMaxActiveClusters of the fused kernel; default: the
+    current device); 0 means the plan cannot run."""
+    from .. import _build
+
+    lib = _build.load("fused_solver")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        n = lib.fused_active_clusters(
+            B, plan.cluster, int(plan.resident), plan.groups,
+            plan.smem_bytes, ctypes.c_void_p(stream))
+    if n < 0:
+        _raise_on("active_clusters", lib.fused_error_string, -n)
+    return n
+
+
+@functools.cache
+def card_plan(B: int, H: int, W: int, device) -> PcgPlan:
+    """``fused_plan`` on a CUDA device: each candidate plan's active
+    clusters queried there, once per (B, H, W, device)."""
+    return fused_plan(B, H, W, lambda plan: active_clusters(plan, B, device))
+
+
 def anneal_solve_fused(ops: ArapOperands, cfg) -> torch.Tensor:
     """x (..., 3, H, W) after the whole uniform schedule of `cfg`, for
     unbatched or batched operands. CPU tensors run the plain version; CUDA
-    tensors run the cooperative kernel on the current stream, one launch a
-    call, without synchronising."""
+    tensors run the cluster kernel with ``card_plan``'s plan on the current
+    stream, one launch a call, without synchronising."""
     unbatched = ops.mask.dim() == 2
     if unbatched:
         ops = ArapOperands(**{k: v[None] for k, v in vars(ops).items()})
@@ -141,12 +193,12 @@ def anneal_solve_fused(ops: ArapOperands, cfg) -> torch.Tensor:
         return x[0] if unbatched else x
     if dev.type != "cuda":
         raise ValueError(f"anneal_solve_fused: no kernel for device {dev}")
-    from .. import _build
-
     num_anneal, gn_iters, pcg_iters = schedule(cfg)
     if min(num_anneal, gn_iters, pcg_iters) < 0:
         raise ValueError(f"anneal_solve_fused: schedule {num_anneal}x"
                          f"{gn_iters}x{pcg_iters}")
+    from .. import _build
+
     B, H, W = ops.mask.shape
     w = weight_pairs(ops.wf2, ops.wr2, B, dev)
     ins = {"vmasks": (ops.vmasks, (B, 4, H, W)),
@@ -159,22 +211,23 @@ def anneal_solve_fused(ops: ArapOperands, cfg) -> torch.Tensor:
     vm, fit, csrc, ctgt, grid, w = (t for t, _ in ins.values())
 
     lib = _build.load("fused_solver")
+    plan = card_plan(B, H, W, dev)
     x = torch.empty((B, 3, H, W), dtype=torch.float32, device=dev)
-    sc, pre = (torch.empty((B, 2, H, W), dtype=torch.float32, device=dev)
-               for _ in range(2))
-    delta, r, p, ap = (torch.empty_like(x) for _ in range(4))
-    part = torch.empty((3, B, lib.fused_solve_nchunk(H, W)),
-                       dtype=torch.float32, device=dev)
+    pre = torch.empty((B, 2, H, W), dtype=torch.float32, device=dev)
+    # device-memory scratch for the planes the plan keeps off the chip
+    sc = torch.empty_like(pre) if plan.groups < 1 else None
+    r, ap, delta = (torch.empty_like(x) if plan.groups < g else None
+                    for g in (2, 3, 4))
+    p = None if plan.resident else torch.empty_like(x)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_solve_f32(
-            *(ctypes.c_void_p(t.data_ptr()) for t in (
-                vm, fit, csrc, ctgt, grid, w, x, sc, pre, delta, r, p, ap,
-                part)),
-            B, H, W, num_anneal, gn_iters, pcg_iters, ctypes.c_void_p(stream),
+            *(_ptr(t) for t in (vm, fit, csrc, ctgt, grid, w, x, pre, sc, r,
+                                p, ap, delta)),
+            B, H, W, num_anneal, gn_iters, pcg_iters, plan.cluster,
+            plan.rows_per_cta, int(plan.resident), plan.groups,
+            plan.smem_bytes, ctypes.c_void_p(stream),
         )
-    if err != 0:
-        raise RuntimeError(f"anneal_solve_fused: CUDA error {err}: "
-                           f"{lib.fused_error_string(err).decode()}")
+    _raise_on("anneal_solve_fused", lib.fused_error_string, err)
     LAUNCHES["anneal_solve_fused"] += 1
     return x[0] if unbatched else x

@@ -61,24 +61,29 @@ class PcgPlan(NamedTuple):
     groups: int
 
 
+GroupBytes = Callable[[int, int], tuple[int, ...]]
+
+
 def _group_bytes(rows: int, W: int) -> tuple[int, ...]:
-    """Shared-memory bytes of each optional group, in plan order."""
+    """Shared-memory bytes of each optional group of the PCG kernel, in plan
+    order."""
     band = 4 * rows * W
     return 2 * (band + 8 * W), 3 * band, 3 * band, 3 * band
 
 
-def _plan_with(H: int, W: int, cluster: int, resident: bool) -> PcgPlan:
+def _plan_with(H: int, W: int, cluster: int, resident: bool,
+               group_bytes: GroupBytes = _group_bytes) -> PcgPlan:
     """The plan of `cluster` CTAs a problem. The rows are split evenly (the
     last band may be shorter) and the cluster is trimmed so that no CTA is
-    left without rows. The groups then fill the shared memory that is left,
-    in order, until the next one does not fit (the streamed plan keeps
-    none)."""
+    left without rows. The groups (`group_bytes(rows, W)`) then fill the
+    shared memory that is left, in order, until the next one does not fit
+    (the streamed plan keeps none)."""
     rows = -(-H // cluster)
     cluster = -(-H // rows)
     # the halo rows of p above and below the band, then p's band
     smem = 24 * W + (12 * rows * W if resident else 0)
     groups = 0
-    for nbytes in _group_bytes(rows, W) if resident else ():
+    for nbytes in group_bytes(rows, W) if resident else ():
         if smem + nbytes > SMEM_PER_BLOCK - _STATIC_SMEM:
             break
         smem += nbytes
@@ -86,7 +91,8 @@ def _plan_with(H: int, W: int, cluster: int, resident: bool) -> PcgPlan:
     return PcgPlan(cluster, rows, resident, smem, groups)
 
 
-def candidate_plans(H: int, W: int) -> list[PcgPlan]:
+def candidate_plans(H: int, W: int,
+                    group_bytes: GroupBytes = _group_bytes) -> list[PcgPlan]:
     """The plans the kernel can run an H×W problem with, by cluster size.
     Resident: every cluster from the smallest whose band of p (3 floats a
     pixel) fits a block's shared memory up to 16, trimmed (so one size may
@@ -96,24 +102,26 @@ def candidate_plans(H: int, W: int) -> list[PcgPlan]:
     fits = [c for c in range(1, MAX_CLUSTER + 1)
             if 24 * W + 12 * -(-H // c) * W <= budget]
     if not fits:
-        return [_plan_with(H, W, MAX_CLUSTER, False)]
+        return [_plan_with(H, W, MAX_CLUSTER, False, group_bytes)]
     plans = {}
     for c in range(fits[0], MAX_CLUSTER + 1):
-        plan = _plan_with(H, W, c, True)
+        plan = _plan_with(H, W, c, True, group_bytes)
         plans[plan.cluster] = plan
     return list(plans.values())
 
 
-def pcg_plan(B: int, H: int, W: int,
-             active: Callable[[PcgPlan], int]) -> PcgPlan:
+def pcg_plan(B: int, H: int, W: int, active: Callable[[PcgPlan], int],
+             group_bytes: GroupBytes = _group_bytes) -> PcgPlan:
     """The cluster kernel's plan for B problems of H×W, given `active`: how
-    many clusters of a candidate plan the card holds at once.
+    many clusters of a candidate plan the card holds at once; `group_bytes`
+    gives the kernel's shared-memory groups (the fused kernel has its own).
 
-    Among ``candidate_plans(H, W)`` it takes the largest cluster of which
-    the card holds all B at once: one wave. Where none does, the plan with
-    the fewest waves ⌈B / active⌉, the larger cluster on a tie. A plan of
-    which no cluster fits (active 0) is never taken while another fits."""
-    plans = candidate_plans(H, W)
+    Among ``candidate_plans(H, W, group_bytes)`` it takes the largest
+    cluster of which the card holds all B at once: one wave. Where none
+    does, the plan with the fewest waves ⌈B / active⌉, the larger cluster on
+    a tie. A plan of which no cluster fits (active 0) is never taken while
+    another fits."""
+    plans = candidate_plans(H, W, group_bytes)
     if len(plans) == 1:
         return plans[0]
     B = max(B, 1)
@@ -234,10 +242,12 @@ def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
-def _raise_on(fn: str, lib, err: int) -> None:
+def _raise_on(fn: str, err_string, err: int) -> None:
+    """Raise on a kernel library's non-zero return code, with the message
+    that library's `err_string` gives for it."""
     if err != 0:
         raise RuntimeError(
-            f"{fn}: CUDA error {err}: {lib.pcg_error_string(err).decode()}")
+            f"{fn}: CUDA error {err}: {err_string(err).decode()}")
 
 
 def pcg_fixed(b, pre, s, c, vmasks, fitmask, wf2, wr2, iters: int,
@@ -280,7 +290,7 @@ def _launch(plan: PcgPlan, b, pre, s, c, vmasks, fitmask, wf2, wr2,
             int(plan.resident), plan.groups, plan.smem_bytes,
             ctypes.c_void_p(stream),
         )
-    _raise_on("pcg_fixed", lib, err)
+    _raise_on("pcg_fixed", lib.pcg_error_string, err)
     LAUNCHES["pcg_fixed_tall" if tall else "pcg_fixed"] += 1
     return delta
 
@@ -299,7 +309,7 @@ def active_clusters(plan: PcgPlan, B: int, W: int, tall: bool = False,
             B, W, plan.cluster, int(plan.resident), plan.groups,
             plan.smem_bytes, int(tall), ctypes.c_void_p(stream))
     if n < 0:
-        _raise_on("active_clusters", lib, -n)
+        _raise_on("active_clusters", lib.pcg_error_string, -n)
     return n
 
 

@@ -19,8 +19,9 @@ Backends:
   kernel on a GPU, and a schedule with a tolerance (``--schedule fast``)
   runs the early-exit plain PCG, as the JAX package runs XLA there.
 - ``"fused"`` (opt-in, as in the JAX package): the whole schedule in one
-  call of ``ops.fused_solver.anneal_solve_fused`` (one cooperative kernel
-  launch on CUDA tensors, its plain version on CPU tensors). Only float32
+  call of ``ops.fused_solver.anneal_solve_fused`` (one thread-block-cluster
+  kernel launch on CUDA tensors, a cluster a problem; its plain version on
+  CPU tensors). Only float32
   operands with no tolerance and a uniform PCG budget are eligible
   (``fused_eligible``); the rest resolve as ``"auto"`` does.
 
@@ -89,7 +90,8 @@ def fused_eligible(cfg: SolverConfig, dtype=torch.float32) -> bool:
     budget), no non-uniform early/late schedule (the kernel runs one budget
     for every anneal step, which also keeps solve_stats' closed-form count
     exact) and float32 operands. The JAX package's VMEM gate (fits_vmem) has
-    no counterpart: the cooperative kernel keeps its state in device memory."""
+    no counterpart: what does not fit the cluster kernel's shared memory
+    stays in device memory (its streamed plan), so every size runs."""
     return (
         cfg.backend == "fused"
         and float(cfg.q_tolerance) == 0.0 and float(cfg.rz_tolerance) == 0.0

@@ -50,13 +50,17 @@ Phases, each reported on its own line; any failure exits non-zero:
    --profile, one more run under torch.profiler prints the device time by
    kernel and the device's busy share, and a profiled matcher call on the
    same 4 pairs prints the matcher's own device time.
-6. fused kernel vs plain: ``anneal_solve_fused`` (one cooperative launch a
-   solve) against ``anneal_solve_fused_plain`` at 16×128 (3×2×60), B=1
-   192×384 and B=4 192×256 (2×2×40): 1×1×1 within 1e-4 and 1×1×3 within
-   0.01; over the solve region median |Δx| < 1e-3 and max |Δx| < 0.01;
-   every problem's final cost within 5%; two kernel runs bitwise equal; ms
-   a call of both, and the kernel's ms a 19×8×400 solve beside 152 per-GN
-   PCG calls.
+6. fused kernel vs plain: for each shape the fused kernel's plan
+   (``fused_solver.card_plan``: CTAs a problem, rows a CTA, resident or
+   streamed, groups in shared memory, bytes, active clusters, waves; a plan
+   with 0 active clusters fails), then ``anneal_solve_fused`` (one
+   thread-block-cluster launch a solve) against
+   ``anneal_solve_fused_plain`` at 16×128 (3×2×60), B=1 192×384, B=4
+   192×256, B=24 64×128 (2×2×40) and the 480×854 frame (streamed, 1×2×40):
+   1×1×1 within 1e-4 and 1×1×3 within 0.01; over the solve region median
+   |Δx| < 1e-3 and max |Δx| < 0.01; every problem's final cost within 5%;
+   two kernel runs bitwise equal; ms a call of both, and the kernel's ms a
+   19×8×400 solve beside 152 per-GN PCG calls.
 6b. fused deform pair: phase 3's pair again with SolverConfig(backend=
    "fused"): median rigid EPE < 1 px and median |flow − phase 3's flow| <
    0.05 px per segment; one fused launch per solve chunk and no PCG
@@ -1013,7 +1017,7 @@ def device_time_report(prof, wall_s: float, label: str) -> None:
     for name, (us, _) in rows.items():
         key = ("pcg kernels" if "pcg_" in name else "zncc kernels"
                if ("zscore_kernel" in name or "search_kernel" in name)
-               else "fused kernel" if "fused_solve" in name else "torch ops")
+               else "fused kernel" if "fused_cluster" in name else "torch ops")
         groups[key] += us
     say(f"{label}: device busy {total_us / 1e6:.4f} s of {wall_s:.4f} s "
         f"wall under the profiler ({100 * total_us / 1e6 / wall_s:.1f}%); "
@@ -1115,9 +1119,15 @@ def interior_operands(H: int, W: int, seed: int, device):
     return [ops], stack_operands([ops])
 
 
-# (B, H, W) and (num_anneal, gn_iters, pcg_iters) of phase 6's checks
+# (B, H, W) and (num_anneal, gn_iters, pcg_iters) of phase 6's checks: a
+# thin problem (one row a CTA), the deform pair's larger bucket, the
+# pipeline's chunk, its largest chunk (B = 24 of the smallest bucket) and
+# the full frame (the streamed plan)
 FUSED_CHECKS = (((1, 16, 128), (3, 2, 60)), ((1, 192, 384), (2, 2, 40)),
-                ((4, 192, 256), (2, 2, 40)))
+                ((4, 192, 256), (2, 2, 40)), ((24, 64, 128), (2, 2, 40)),
+                ((1, FRAME_H, FRAME_W), (1, 2, 40)))
+# 19×8×400 solves timed beside 152 per-GN PCG calls
+FUSED_TIMED = ((1, 16, 128), (1, 192, 384), PIPE_PCG_SHAPE, (24, 64, 128))
 # The unit of the fused kernel's times in the kernels line: one anneal step
 # of one GN step and 400 PCG iterations at the pipeline's chunk shape, the
 # per-GN kernel's 400-iteration call plus its linearisation.
@@ -1129,20 +1139,39 @@ FUSED_UNIT = (1, 1, 400)
 FUSED_MAX_DX = 0.01
 
 
+def fused_plan_line(B: int, H: int, W: int) -> str:
+    """The fused kernel's plan at (B, H, W) and its active clusters on this
+    card."""
+    import torch
+
+    from arap_flow_tpu_torch.ops.fused_solver import active_clusters, card_plan
+
+    dev = torch.device("cuda", 0)
+    plan = card_plan(B, H, W, dev)
+    act = active_clusters(plan, B, dev)
+    line = (f"phase 6 plan B={B} {H}x{W}: cluster {plan.cluster}, "
+            f"{plan.rows_per_cta} rows a CTA, "
+            f"{'resident' if plan.resident else 'streamed'}, "
+            f"{plan.groups} groups in shared memory, {plan.smem_bytes} B; "
+            f"active clusters {act}, "
+            f"{-(-B // act) if act > 0 else 'no'} wave(s)")
+    if act <= 0:
+        raise AssertionError(line)
+    return line
+
+
 def phase_fused(smi: str, call_ms):
     """The fused kernel against its plain version on the card. Returns (the
     largest 1×1×1 or 1×1×3 |Δx|, kernel ms and plain ms of FUSED_UNIT at
     the pipeline's chunk shape)."""
     import torch
 
-    from arap_flow_tpu_torch import _build
     from arap_flow_tpu_torch.ops import energy as E
     from arap_flow_tpu_torch.ops.fused_solver import (anneal_solve_fused,
                                                       anneal_solve_fused_plain)
     from arap_flow_tpu_torch.ops.solver import SolverConfig
 
     dev = torch.device("cuda", 0)
-    lib = _build.load("fused_solver")
 
     def sched(na, gn, it):
         return SolverConfig(num_anneal=na, gn_iters=gn, max_pcg_iters=it,
@@ -1151,6 +1180,7 @@ def phase_fused(smi: str, call_ms):
     max_err = 0.0
     batches = {}
     for (B, H, W), (na, gn, it) in FUSED_CHECKS:
+        say(fused_plan_line(B, H, W))
         if H < 64:
             _, batch = interior_operands(H, W, 400, dev)
         else:
@@ -1186,8 +1216,7 @@ def phase_fused(smi: str, call_ms):
                 f"1x1x1 max|dx| {short[0]:.3g}, 1x1x3 max|dx| "
                 f"{short[1]:.3g}; over the solve region median|dx| "
                 f"{med:.3g}, max|dx| {mx:.3g}; largest relative cost gap "
-                f"{cost_gap:.3g}; bitwise repeat ok; "
-                f"{lib.fused_solve_blocks(B, H, W)} blocks; kernel "
+                f"{cost_gap:.3g}; bitwise repeat ok; kernel "
                 f"{ms:.3f} ms, plain {plain_ms:.3f} ms a call")
         say(line)
         if not (short[0] < 1e-4 and short[1] < FUSED_MAX_DX and med < 1e-3
@@ -1207,8 +1236,8 @@ def phase_fused(smi: str, call_ms):
     full = SolverConfig()
     steps = full.num_anneal * full.gn_iters
     label = f"{full.num_anneal}x{full.gn_iters}x{full.max_pcg_iters}"
-    # 16x128 (8 blocks, a pixel a thread) shows the barriers' own cost
-    for shape in ((1, 16, 128), (1, 192, 384), PIPE_PCG_SHAPE):
+    # 16x128 (16 CTAs of one row) shows the synchronisation's own cost
+    for shape in FUSED_TIMED:
         b = batches[shape]
         ms = cuda_ms(lambda: anneal_solve_fused(b, full), reps=3)
         bms, by = fused_bound(*shape, full.num_anneal, full.gn_iters,
