@@ -1,11 +1,16 @@
-"""Build and load the CUDA kernels (nvcc -> plain C-ABI .so -> ctypes).
+"""Build and load the CUDA kernels (nvcc -> plain C-ABI .so -> ctypes) and
+the native host library (g++ -> .so -> ctypes).
 
 Each source in ``csrc/`` is compiled on first use into its own library in
 ``_build/``, keyed by a hash of the source and the compiler flags, so an
 edited source rebuilds and an unchanged one loads at once. The missing
 libraries are compiled together, one nvcc process per source; the shared
-headers (``csrc/*.cuh``) are part of every library's key. The build runs
-only on a machine with the CUDA toolkit; nothing here runs at import time.
+headers (``csrc/*.cuh``) are part of every library's key. The CUDA build
+runs only on a machine with the CUDA toolkit. The host library
+(``native/src/arap_native.cpp``: the exact splat, the .flo codec, the
+asynchronous writer and the JPEG codec) is built the same way with g++,
+on any machine. A failed build or load raises; nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -85,6 +90,77 @@ def build() -> tuple[list[str], float]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return libs, time.perf_counter() - t0
+
+
+NATIVE_SRC = osp.join(_HERE, "native", "src", "arap_native.cpp")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+
+
+def native_lib_path() -> str:
+    """Path of the host library built from NATIVE_SRC with GXX_FLAGS."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    with open(NATIVE_SRC, "rb") as f:
+        h.update(f.read())
+    return osp.join(BUILD_DIR, f"libarap_native-{h.hexdigest()[:16]}.so")
+
+
+def build_native() -> tuple[str, float]:
+    """Compile the host library with g++ unless it is built; returns (its
+    path, seconds spent compiling — 0 when it was built)."""
+    lib = native_lib_path()
+    if osp.exists(lib):
+        return lib, 0.0
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH: the native host library "
+                           "cannot be built")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run([gxx, *GXX_FLAGS, NATIVE_SRC, "-o", tmp],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ exited {proc.returncode} building "
+                           f"{osp.basename(lib)}:\n{proc.stdout}")
+    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    return lib, time.perf_counter() - t0
+
+
+@functools.cache
+def load_native() -> ctypes.CDLL:
+    """Build (if needed) and load the host library, with every C function's
+    argument and result types declared."""
+    lib = ctypes.CDLL(build_native()[0])
+    vp, i, lg, cp = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_char_p
+    lib.raster_warp.argtypes = [vp, vp, vp, i, i, vp, vp]
+    lib.raster_warp.restype = None
+    lib.flo_write_file.argtypes = [cp, vp, i, i]
+    lib.flo_write_file.restype = i
+    lib.flo_read_file.argtypes = [cp, vp, lg, ctypes.POINTER(i),
+                                  ctypes.POINTER(i)]
+    lib.flo_read_file.restype = i
+    lib.writer_start.argtypes = [i]
+    lib.writer_start.restype = None
+    lib.writer_submit_flo.argtypes = [cp, vp, i, i]
+    lib.writer_submit_flo.restype = None
+    lib.writer_submit_bytes.argtypes = [cp, cp, lg]
+    lib.writer_submit_bytes.restype = None
+    lib.writer_pending.restype = lg
+    lib.writer_errors.restype = lg
+    lib.writer_drain.restype = None
+    lib.writer_stop.restype = None
+    lib.jpeg_last_error.restype = cp
+    lib.jpeg_info.argtypes = [cp, lg, ctypes.POINTER(i), ctypes.POINTER(i),
+                              ctypes.POINTER(i)]
+    lib.jpeg_info.restype = i
+    lib.jpeg_decode.argtypes = [cp, lg, vp, i, i, i]
+    lib.jpeg_decode.restype = i
+    lib.jpeg_encode.argtypes = [vp, i, i, i, i]
+    lib.jpeg_encode.restype = lg
+    lib.jpeg_take.argtypes = [vp]
+    lib.jpeg_take.restype = None
+    return lib
 
 
 @functools.cache

@@ -1,15 +1,23 @@
 """Image IO and mask conventions (io/image.py of the JAX package).
 
 PNG files go through a codec of numpy and the standard library's ``zlib``,
-so frames and masks load and save where PIL is not installed:
+and baseline JPEG files through the native host library's C++ codec
+(``native/runtime.py``), so frames, masks and backgrounds load and save
+where PIL is not installed:
 
-- read: non-interlaced 8-bit gray, gray+alpha, RGB and RGBA, and palette
-  images of 1, 2, 4 or 8 bits, with all five row filters; alpha is dropped;
-- write: 8-bit gray and RGB, filter "up" on every row, zlib level 1.
+- PNG read: non-interlaced 8-bit gray, gray+alpha, RGB and RGBA, and
+  palette images of 1, 2, 4 or 8 bits, with all five row filters; alpha is
+  dropped. PNG write: 8-bit gray and RGB, filter "up" on every row, zlib
+  level 1.
+- JPEG read: baseline files with 1 or 3 components, 4:4:4, 4:2:2 or 4:2:0,
+  decoded bitwise equal to PIL (libjpeg-turbo's defaults); progressive,
+  arithmetic-coded, 12-bit and CMYK files raise ValueError. JPEG write:
+  baseline JFIF, 4:2:0, at ``quality`` (PIL's default 75).
 
-Any other file (JPEG frames, 16-bit or interlaced PNGs) goes through PIL,
-imported where it is needed; where PIL is missing that raises an
-ImportError that names it.
+The format is read from the file's first bytes; a file named .png or .jpg
+that is neither raises ValueError. Any other file (16-bit or interlaced
+PNGs, other formats) goes through PIL, imported where it is needed; where
+PIL is missing that raises an ImportError that names it.
 
 Mask conventions: annotation masks use 0 = background, nonzero = segment
 id; ARAP solver masks use 0 = solve region, ARAP_BG = 255 = excluded.
@@ -21,6 +29,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from ..native import runtime as native
 
 ARAP_BG = 255
 
@@ -36,7 +46,7 @@ def pil_image():
         raise ImportError(
             "this image operation needs PIL (Pillow), which is not "
             "installed: without it only PNG files (8-bit gray, RGB, RGBA and "
-            "palette) are read and written, with no resizing") from e
+            "palette) and baseline JPEG files are read and written") from e
     return Image
 
 
@@ -44,8 +54,15 @@ class _Unsupported(Exception):
     """A PNG this codec does not decode (handed to PIL)."""
 
 
+_JPEG_SOI = b"\xff\xd8"
+
+
 def _is_png(path) -> bool:
     return str(path).lower().endswith(".png")
+
+
+def _is_jpeg(path) -> bool:
+    return str(path).lower().endswith((".jpg", ".jpeg"))
 
 
 def _chunks(data: bytes):
@@ -176,15 +193,19 @@ def png_encode(arr: np.ndarray, level: int = 1) -> bytes:
 
 
 def _decode_file(path):
-    """png_decode of a .png file, or None where PIL has to read it."""
-    if not _is_png(path):
-        return None
+    """("png", png_decode result) or ("jpeg", pixels) from the file's first
+    bytes (a .png or .jpg name that is neither raises ValueError), or None
+    where PIL has to read it."""
     with open(path, "rb") as f:
         data = f.read()
-    try:
-        return png_decode(data)
-    except _Unsupported:
-        return None
+    if data[:8] == _SIGNATURE or (_is_png(path) and data[:2] != _JPEG_SOI):
+        try:
+            return "png", png_decode(data)
+        except _Unsupported:
+            return None
+    if data[:2] == _JPEG_SOI or _is_jpeg(path):
+        return "jpeg", native.jpeg_decode(data)
+    return None
 
 
 def load_rgb(path) -> np.ndarray:
@@ -194,7 +215,10 @@ def load_rgb(path) -> np.ndarray:
     if dec is None:
         with pil_image().open(path) as im:
             return np.array(im if im.mode == "RGB" else im.convert("RGB"))
-    px, ctype, palette = dec
+    kind, got = dec
+    if kind == "jpeg":
+        return got if got.ndim == 3 else np.repeat(got[..., None], 3, axis=2)
+    px, ctype, palette = got
     if ctype == 3:
         return palette[px]
     if ctype in (0, 4):
@@ -211,29 +235,36 @@ def load_mask(path) -> np.ndarray:
         with pil_image().open(path) as im:
             arr = np.array(im)
         return arr[:, :, 0] if arr.ndim == 3 else arr
-    px = dec[0]
+    kind, got = dec
+    px = got if kind == "jpeg" else got[0]
     return np.ascontiguousarray(px[:, :, 0]) if px.ndim == 3 else px
 
 
 def image_size(path) -> tuple[int, int]:
     """(H, W) of an image from its header, without decoding the pixels."""
-    if _is_png(path):
+    with open(path, "rb") as f:
+        head = f.read(33)
+    if head[:8] == _SIGNATURE and head[12:16] == b"IHDR":
+        W, H = struct.unpack(">II", head[16:24])
+        return H, W
+    if head[:2] == _JPEG_SOI:
         with open(path, "rb") as f:
-            head = f.read(33)
-        if head[:8] == _SIGNATURE and head[12:16] == b"IHDR":
-            W, H = struct.unpack(">II", head[16:24])
-            return H, W
+            H, W, _ = native.jpeg_info(f.read())
+        return H, W
     with pil_image().open(path) as im:
         w, h = im.size
     return h, w
 
 
-def save_image(path, arr: np.ndarray) -> None:
-    """Save an (H, W[, 3]) uint8 array; PNGs through png_encode (zlib
-    level 1), other formats through PIL."""
+def save_image(path, arr: np.ndarray, quality: int = 75) -> None:
+    """Save an (H, W[, 3]) uint8 array: PNGs through png_encode (zlib level
+    1), .jpg/.jpeg through the native baseline encoder at `quality`, other
+    formats through PIL."""
     arr = np.asarray(arr, dtype=np.uint8)
-    if _is_png(path) and (arr.ndim == 2 or (arr.ndim == 3 and arr.shape[2] == 3)):
-        data = png_encode(arr)
+    plain = arr.ndim == 2 or (arr.ndim == 3 and arr.shape[2] == 3)
+    if plain and (_is_png(path) or _is_jpeg(path)):
+        data = png_encode(arr) if _is_png(path) else native.jpeg_encode(
+            arr, quality)
         with open(path, "wb") as f:
             f.write(data)
         return

@@ -153,8 +153,10 @@ class ArapDeformer:
 
     `crop` solves on the object's bucket (``pipeline.batch.make_task``) and
     rasterizes on its canvas; `keep_state` returns the solver state and needs
-    crop=False. `raster` is "device" (the seed-and-gather rasterizer); the
-    reference-exact host splat ("host") is not ported yet.
+    crop=False. `raster` is "device" (the seed-and-gather rasterizer, on the
+    solve's device) or "host" (the reference-exact C++ splat of the native
+    library, ``native.runtime.rasterize_warp``, from the solved flow; the
+    device products are then not copied back).
     """
 
     def __init__(
@@ -174,12 +176,7 @@ class ArapDeformer:
                 "keep_state=True requires crop=False (the bucketed canvas "
                 "path does not return the solver state)"
             )
-        if raster == "host":
-            raise NotImplementedError(
-                "raster='host' (the reference-exact host splat) is not yet "
-                "ported; use raster='device'"
-            )
-        if raster != "device":
+        if raster not in ("device", "host"):
             raise ValueError(f"unknown raster {raster!r}")
         self.cfg = cfg
         self.weights = weights
@@ -198,11 +195,29 @@ class ArapDeformer:
         cons = np.asarray(constraints, np.int32).reshape(-1, 4)
         if self.pin_border:
             cons = add_border_pins(cons, W, H)
+        fetch = self.raster == "device"
         if self.crop:
-            return self._deform_cropped(rgb, arap_mask, cons)
-        return self._deform_full(rgb, arap_mask, cons, self.keep_state)
+            res = self._deform_cropped(rgb, arap_mask, cons, fetch)
+        else:
+            res = self._deform_full(rgb, arap_mask, cons, self.keep_state,
+                                    fetch)
+        return res if fetch else self._host_raster(res, rgb, arap_mask)
 
-    def _deform_full(self, rgb, arap_mask, cons, keep_state: bool):
+    @staticmethod
+    def _host_raster(res: DeformResult, rgb, arap_mask) -> DeformResult:
+        """The products of the reference-exact host splat of the solved flow
+        (warp = flow + grid), in place of the device raster's."""
+        from ..native.host_raster import warp_from_flow
+        from ..native.runtime import rasterize_warp
+
+        wrgb, wmask = rasterize_warp(warp_from_flow(res.flow),
+                                     np.asarray(rgb, np.uint8),
+                                     np.asarray(arap_mask))
+        return DeformResult(flow=res.flow, warped_rgb=wrgb, warped_mask=wmask,
+                            state=res.state)
+
+    def _deform_full(self, rgb, arap_mask, cons, keep_state: bool,
+                     fetch_raster: bool = True):
         ops = E.build_compact(np.asarray(arap_mask), cons, self.weights)
         rgb_u8 = torch.as_tensor(np.ascontiguousarray(rgb.transpose(2, 0, 1)),
                                  device=self.device)
@@ -210,21 +225,23 @@ class ArapDeformer:
                                                  self.cfg)
         return DeformResult(
             flow=_numpy(flow).transpose(1, 2, 0),
-            warped_rgb=_numpy(wrgb).transpose(1, 2, 0),
-            warped_mask=_numpy(wmask),
+            warped_rgb=_numpy(wrgb).transpose(1, 2, 0) if fetch_raster else None,
+            warped_mask=_numpy(wmask) if fetch_raster else None,
             state=_numpy(x) if keep_state else None,
         )
 
-    def _deform_cropped(self, rgb, arap_mask, cons) -> DeformResult:
+    def _deform_cropped(self, rgb, arap_mask, cons,
+                        fetch_raster: bool = True) -> DeformResult:
         """Solve on the object's tight bucket, rasterize on its canvas, paste
-        the products into full-frame arrays."""
+        the products into full-frame arrays. `fetch_raster` False (the host
+        splat's callers) copies back the flow only."""
         from ..pipeline.batch import make_task
 
         H, W = arap_mask.shape[:2]
         t = make_task(0, 0, rgb, arap_mask, cons, self.weights,
                       buckets=self.crop_buckets, pin_border=False)
         if t is None:  # no bucket fits: full-frame solve
-            return self._deform_full(rgb, arap_mask, cons, False)
+            return self._deform_full(rgb, arap_mask, cons, False, fetch_raster)
         ops = E.CompactOperands.stack([t.ops]).to(self.device)
         offs = np.asarray([[t.y0 - t.cy0, t.x0 - t.cx0]], np.int32)
         flows, wrgbs, wmasks = solve_and_raster_canvas(
@@ -237,6 +254,9 @@ class ArapDeformer:
         full_flow = np.zeros((H, W, 2), np.float32)
         full_flow[t.y0 : t.y0 + bh, t.x0 : t.x0 + bw] = (
             _numpy(flows[0]).transpose(1, 2, 0))
+        if not fetch_raster:
+            return DeformResult(flow=full_flow, warped_rgb=None,
+                                warped_mask=None)
         full_rgb = np.zeros((H, W, 3), np.uint8)
         full_rgb[t.cy0 : t.cy0 + ch, t.cx0 : t.cx0 + cw] = (
             _numpy(wrgbs[0]).transpose(1, 2, 0))

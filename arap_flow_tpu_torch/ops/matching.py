@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import transfer
 from .zncc import zncc_search
 
 
@@ -418,7 +419,7 @@ def match_images_dispatch_multi(
         rotations=rotations, refine_passes=refine_passes, downscale=ds,
         subpatch=subpatch,
     )
-    shared = _SharedGrids(grids)
+    shared = _SharedGrids(grids, transfer.mark(device))
     return [((shared, i), H_, W_, stride, stride_d, ds, radius)
             for i in range(len(rgb_pairs))]
 
@@ -437,16 +438,20 @@ def match_images_dispatch(
 
 
 class _SharedGrids:
-    """A pair stack's grid planes: copied to the host once, on first use."""
+    """A pair stack's grid planes: copied to the host once, on first use.
+    The copy waits for the matcher's own launches only (`ready`, recorded
+    after them; ``utils.transfer.fetch``), not for work queued later, such
+    as the previous chunk's solves."""
 
-    def __init__(self, grids):
+    def __init__(self, grids, ready):
         self._grids = grids
+        self._ready = ready
         self._host = None
 
     def pair(self, i: int):
         if self._host is None:
-            self._host = tuple(t.cpu().numpy() for t in self._grids)
-            self._grids = None
+            self._host = tuple(transfer.fetch(self._grids, self._ready))
+            self._grids = self._ready = None
         return tuple(a[i] for a in self._host)
 
 

@@ -8,11 +8,16 @@ group as one batched call (``models.arap.solve_and_raster_canvas``: one PCG
 kernel launch per GN step for the whole chunk). A chunk is enqueued on the
 device the moment it fills, so the card works while the host prepares later
 tasks; ``collect`` copies the products back and pastes them into full-frame
-arrays. Segments too large for any bucket fall back to a full-frame solve.
+arrays. Each dispatched chunk records an event after its last launch, and
+its copy runs on a side stream that waits on that event alone
+(``utils.transfer``), so collecting chunk k−1 does not wait for work queued
+after it; pastes run on one worker thread, overlapped with the next copy.
+Segments too large for any bucket fall back to a full-frame solve.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -30,6 +35,7 @@ from ..models.arap import (
 )
 from ..ops import energy as E
 from ..ops.solver import SolverConfig
+from ..utils import transfer
 from ..utils.profiling import StageTimer
 
 # Device bytes of one problem in the PCG kernel call: b, pre, δ and the r, p,
@@ -177,7 +183,8 @@ class BatchRunner:
                 ops, rgb, offs, self.cfg, canvas_hw=chunk_tasks[0].canvas,
                 transposed=chunk_tasks[0].transposed,
             )
-        self.pending.append((chunk_tasks, flows, wrgbs, wmasks))
+        self.pending.append((chunk_tasks, transfer.mark(self.device), flows,
+                             wrgbs, wmasks))
 
     def add(self, task: SegmentTask) -> None:
         key = (task.bucket, task.canvas, task.transposed)
@@ -201,7 +208,8 @@ class BatchRunner:
         rgb_u8 = torch.as_tensor(np.ascontiguousarray(rgb.transpose(2, 0, 1)),
                                  device=self.device)
         _, flow, wrgb, wmask = _solve_and_raster(ops, rgb_u8, self.cfg)
-        self.pending.append(((pair_idx, seg_id), flow, wrgb, wmask))
+        self.pending.append(((pair_idx, seg_id), transfer.mark(self.device),
+                             flow, wrgb, wmask))
 
     def flush(self) -> None:
         """Enqueue every buffered remainder without fetching."""
@@ -239,20 +247,27 @@ class BatchRunner:
                 self.out[(t.pair_idx, t.seg_id)] = DeformResult(
                     flow=flow, warped_rgb=rgb, warped_mask=mask)
 
+    def _assemble(self, key, flow, wrgb, wmask) -> None:
+        """A fetched full-frame fallback's products."""
+        self.out[key] = DeformResult(flow=flow.transpose(1, 2, 0),
+                                     warped_rgb=wrgb.transpose(1, 2, 0),
+                                     warped_mask=wmask)
+
     def collect(self) -> dict[tuple, DeformResult]:
-        """Copy every enqueued chunk back (each copy waits for its chunk on
-        the device) and paste it into full-frame arrays."""
-        for group, flows, wrgbs, wmasks in self.pending:
-            with self.timer.stage("D2H fetch"):
-                f_np, r_np, m_np = (t.cpu().numpy() for t in (flows, wrgbs,
-                                                               wmasks))
-            if isinstance(group, tuple):  # full-frame fallback
-                self.out[group] = DeformResult(
-                    flow=f_np.transpose(1, 2, 0),
-                    warped_rgb=r_np.transpose(1, 2, 0),
-                    warped_mask=m_np,
-                )
-            else:
-                self._paste_chunk(group, f_np, r_np, m_np)
+        """Copy every enqueued chunk back (each copy waits for its own chunk
+        on the device) and paste it into full-frame arrays. The pastes run
+        on one worker thread, overlapped with the next chunk's copy; only
+        the worker writes ``self.out``, which is read after they join."""
+        with ThreadPoolExecutor(1) as ex:
+            futs = []
+            for group, ready, flows, wrgbs, wmasks in self.pending:
+                with self.timer.stage("D2H fetch"):
+                    f_np, r_np, m_np = transfer.fetch((flows, wrgbs, wmasks),
+                                                      ready)
+                paste = (self._assemble if isinstance(group, tuple)
+                         else self._paste_chunk)  # tuple: a fallback's key
+                futs.append(ex.submit(paste, group, f_np, r_np, m_np))
+            for f in futs:
+                f.result()  # join, and raise a paste's exception here
         self.pending.clear()
         return self.out

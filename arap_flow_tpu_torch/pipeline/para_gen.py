@@ -2,29 +2,37 @@
 
 Scans an input tree for frame pairs at distance --fd, preprocesses them,
 finds sparse correspondences with the ZNCC pyramid matcher
-(``ops.matching``), filters them to segment-consistent short-displacement
-constraints, composites random backgrounds, ARAP-solves each (frame,
-segment), composes the per-segment products and writes Flow/.flo, the
-warped RGB/mask trees and ``all_files.list``.
+(``ops.matching``) or an external matcher binary, filters them to
+segment-consistent short-displacement constraints, composites random
+backgrounds, ARAP-solves each (frame, segment), composes the per-segment
+products and writes Flow/.flo, the warped RGB/mask trees and
+``all_files.list``.
 
     python -m arap_flow_tpu_torch para_gen --input ROOT --output OUT \\
         --mode batched --multseg --device cuda
 
 Input layout: ROOT/orgRGB/SEQ/<n>.{jpg,png} frames and ROOT/orgMasks/SEQ/
-<n>.png annotation masks (0 = background, nonzero = segment id). PNG frames
-need no PIL; JPEG frames, --size and --bg_dir resize through PIL.
+<n>.png annotation masks (0 = background, nonzero = segment id). None of it
+needs PIL: PNG and baseline JPEG go through the port's codecs
+(``io.image``), and --size and --bg_dir resize with PIL-exact numpy
+resamplers (``io.resize``).
 
-Modes: ``simple`` solves pair by pair; ``batched`` decodes a chunk of
-2·--narap pairs, matches same-shaped pairs together (sub-batches of up to
+Modes: ``simple`` solves pair by pair, with the next pair's host and
+matcher prep on a worker thread; ``batched`` decodes a chunk of 2·--narap
+pairs, matches same-shaped pairs together (sub-batches of up to
 MATCH_SUBBATCH pairs, one zncc_search call per search level for the whole
 sub-batch) and solves the chunk's segments bucketed by shape
 (``pipeline.batch.BatchRunner``), retrying a failed chunk pair by pair. The
-next chunk's frames decode on the host while the current chunk's solves
-run on the device. Writes are synchronous.
+batched loop is the JAX package's depth-2 pipeline: a half-size first
+chunk; chunk k+1's matcher enqueued on the main thread before chunk k's
+solves; chunk k+1's fetch, filter, backgrounds and bucketing on one worker
+thread (one worker keeps the background draws in order); chunk k−1
+collected and written while chunk k solves. Products are written by the
+native threaded writer (``native.runtime.AsyncWriter``), unless
+``FrameworkConfig.async_io`` (``ARAP_ASYNC_IO=0``) turns it off.
 
-Not yet ported: ``--mode sharded``, ``--matcher binary``, the prep worker
-thread and the native asynchronous writer of the JAX package. ``--warmup``
-and ``--exec_pack`` are accepted and only build and load the CUDA kernels.
+Not yet ported: ``--mode sharded``. ``--warmup`` and ``--exec_pack`` are
+accepted and only build and load the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -34,8 +42,10 @@ import logging
 import os
 import os.path as osp
 import re
+import subprocess
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -43,8 +53,9 @@ import torch
 
 from ..io import flo
 from ..io.constraints import filter_matches, read_matches, write_constraint_file
-from ..io.image import (load_mask, load_rgb, mask_to_arap, pil_image,
+from ..io.image import (load_mask, load_rgb, mask_to_arap, png_encode,
                         save_image, segment_mask_to_arap)
+from ..io.resize import resize_lanczos, resize_nearest
 from ..models.arap import ArapDeformer
 from ..ops.solver import SolverConfig
 from ..utils.config import FrameworkConfig, cli_device
@@ -67,8 +78,12 @@ FLOW_DIR = "Flow"
 WRGB_DIR = "wRGB"
 WMASK_DIR = "wMasks"
 
-# what a broken input file raises while it is decoded
+# what a broken input file raises while it is decoded (and a failed
+# external matcher: ChildProcessError is an OSError)
 _DECODE_ERRORS = (OSError, ValueError, zlib.error)
+
+# failed asynchronous product writes of the last main_pipeline call
+WRITE_ERRORS = 0
 
 
 @dataclass
@@ -98,7 +113,7 @@ class PipelineFlags:
     narap: int = 2  # chunk = 2 × narap pairs in batched mode
     size: tuple | None = None  # (w, h) to resize and centre-crop to
     fd: int = 1
-    matcher: str = "native"  # native | file (binary is not yet ported)
+    matcher: str = "native"  # native | binary | file
     dm_bin: str | None = None
     schedule: str = "parity"  # parity | fast
     seed: int | None = None
@@ -114,8 +129,9 @@ class PipelineFlags:
 
 def scale_rotate(im: np.ndarray, mk: np.ndarray, size):
     """Preprocessing (the reference's para_gen.py:253-291): transpose
-    portrait frames, then resize (+10 px slack, through PIL) and centre-crop
-    to `size` (w, h). Returns (preprocessed, im, mk)."""
+    portrait frames, then resize (+10 px slack; LANCZOS for the frame,
+    NEAREST for the mask, both bitwise PIL's) and centre-crop to `size`
+    (w, h). Returns (preprocessed, im, mk)."""
     if im.shape[:2] != mk.shape[:2]:
         raise ValueError(
             f"Image and mask must be of the same size but given "
@@ -126,15 +142,15 @@ def scale_rotate(im: np.ndarray, mk: np.ndarray, size):
         mk = np.ascontiguousarray(mk.swapaxes(0, 1))
         preprocessed = True
     if size is not None and (im.shape[1], im.shape[0]) != tuple(size):
-        Image = pil_image()
         r = max(float(size[0] + 10) / im.shape[1],
                 float(size[1] + 10) / im.shape[0])
         w, h = (np.array([im.shape[1], im.shape[0]]) * r).astype(int)
         left = w // 2 - size[0] // 2
         upper = h // 2 - size[1] // 2
-        box = (left, upper, left + size[0], upper + size[1])
-        im = np.array(Image.fromarray(im).resize((w, h), Image.LANCZOS).crop(box))
-        mk = np.array(Image.fromarray(mk).resize((w, h), Image.NEAREST).crop(box))
+        # the +10 slack keeps the crop box inside the resized frame
+        box = (slice(upper, upper + size[1]), slice(left, left + size[0]))
+        im = np.ascontiguousarray(resize_lanczos(im, (w, h))[box])
+        mk = np.ascontiguousarray(resize_nearest(mk, (w, h))[box])
         preprocessed = True
     return preprocessed, im, mk
 
@@ -144,7 +160,7 @@ class BackgroundPool:
     until the pool refills; files that fail to decode are dropped
     (para_gen.py:365-375, 484-497). Draws use the numpy Generator `rng` in
     the JAX package's order, so a seed gives the same backgrounds. Fitting
-    a background resizes it through PIL."""
+    a background resizes it with the PIL-exact LANCZOS."""
 
     def __init__(self, bg_dir, rng: np.random.Generator):
         self.rng = rng
@@ -155,21 +171,17 @@ class BackgroundPool:
                     up = f.upper()
                     if ".PNG" in up or ".JPG" in up or ".JPEG" in up:
                         self.paths.append(osp.join(root, f))
-        if self.paths:
-            pil_image()  # fail now, not at the first pair, without PIL
         self.tmp: list[str] = []
 
     def fit(self, bg: np.ndarray, shape) -> np.ndarray:
         """Random 1-2× upscale and random crop to `shape` (fit_bg,
         para_gen.py:36-48)."""
-        Image = pil_image()
         imh, imw = shape[:2]
         bgh, bgw = bg.shape[:2]
         r = self.rng.uniform(1, 2) * max(
             float(max(bgh, imh)) / bgh, float(max(bgw, imw)) / bgw
         )
-        bg = np.array(Image.fromarray(bg).resize(
-            (int(bgw * r), int(bgh * r)), Image.LANCZOS))
+        bg = resize_lanczos(bg, (int(bgw * r), int(bgh * r)))
         sy = self.rng.integers(0, bg.shape[0] - imh + 1)
         sx = self.rng.integers(0, bg.shape[1] - imw + 1)
         return bg[sy : sy + imh, sx : sx + imw, :3]
@@ -257,14 +269,31 @@ def scan_pairs(flags: PipelineFlags) -> list[PairPaths]:
 
 
 def run_matching(flags: PipelineFlags, p: PairPaths, rgb1, rgb2,
-                 roi_mask=None) -> np.ndarray:
-    """Raw matches (N, 4) int32 of a pair: the native matcher on
-    flags.device, or the pair's cached matcher file (--matcher file)."""
+                 src_paths=None, roi_mask=None) -> np.ndarray:
+    """Raw matches (N, 4+) of a pair: the native matcher on flags.device,
+    the external matcher binary (--matcher binary), or the pair's cached
+    matcher file (--matcher file).
+
+    The binary is run as the reference runs DeepMatching (para_gen.py:
+    227-240): ``DM src1 src2 -nt 0 -out CSTR -ngh_rad 100``, through the
+    shell, on `src_paths` — the saved preprocessed frames when --size or a
+    transpose changed them, so its matches are in preprocessed coordinates
+    — else the original files. A non-zero exit raises ChildProcessError,
+    which fails the pair."""
     if flags.matcher == "file":
         return read_matches(p.cstr_tmp)
+    if flags.matcher == "binary":
+        if not flags.dm_bin or not osp.exists(flags.dm_bin):
+            raise FileNotFoundError(f"--dm_bin {flags.dm_bin!r}: file not found")
+        src1, src2 = src_paths or (p.rgb1_org, p.rgb2_org)
+        cmd = (f"{osp.abspath(flags.dm_bin)} {src1} {src2} -nt 0 "
+               f"-out {p.cstr_tmp} -ngh_rad 100")
+        status = subprocess.call(cmd, shell=True)
+        if status != 0:
+            raise ChildProcessError(f"matcher exited with code {status}: {cmd}")
+        return read_matches(p.cstr_tmp)
     if flags.matcher != "native":
-        raise NotImplementedError(
-            f"--matcher {flags.matcher} is not yet ported; use native or file")
+        raise ValueError(f"unknown --matcher {flags.matcher!r}")
     from ..ops.matching import match_images
 
     return match_images(
@@ -298,16 +327,24 @@ class PairWork:
 
 
 def decode_pair(flags: PipelineFlags, p: PairPaths):
-    """Decode and preprocess one pair; returns (im1, mk1, im2, mk2), or None
-    when a mask is empty (has_mask)."""
+    """Decode and preprocess one pair; returns (im1, mk1, im2, mk2,
+    src_paths), or None when a mask is empty (has_mask). `src_paths` names
+    the files the external matcher reads: with --matcher binary and
+    preprocessed frames, the frames saved (port PNG codec) at rgb1_gen and
+    rgb2_gen, as the JAX decode_pair does; else None (the originals)."""
     with TIMER.stage("decode+preprocess"):
-        _, im1, mk1 = scale_rotate(load_rgb(p.rgb1_org), load_mask(p.msk1_org),
-                                   flags.size)
-        _, im2, mk2 = scale_rotate(load_rgb(p.rgb2_org), load_mask(p.msk2_org),
-                                   flags.size)
+        pre1, im1, mk1 = scale_rotate(load_rgb(p.rgb1_org),
+                                      load_mask(p.msk1_org), flags.size)
+        pre2, im2, mk2 = scale_rotate(load_rgb(p.rgb2_org),
+                                      load_mask(p.msk2_org), flags.size)
     if not has_mask(mk1, mk2, flags.mask_gate):
         return None
-    return im1, mk1, im2, mk2
+    src_paths = None
+    if flags.matcher == "binary" and (pre1 or pre2):
+        save_image(p.rgb1_gen, im1)
+        save_image(p.rgb2_gen, im2)
+        src_paths = (p.rgb1_gen, p.rgb2_gen)
+    return im1, mk1, im2, mk2, src_paths
 
 
 def prep_pair(
@@ -323,13 +360,14 @@ def prep_pair(
         decoded = decode_pair(flags, p)
     if decoded is None:
         return None
-    im1, mk1, im2, mk2 = decoded
+    im1, mk1, im2, mk2, src_paths = decoded
 
     if prematched is not None:
         matches = prematched
     else:
         with TIMER.stage("matching"):
-            matches = run_matching(flags, p, im1, im2, roi_mask=mk1)
+            matches = run_matching(flags, p, im1, im2, src_paths=src_paths,
+                                   roi_mask=mk1)
     kept, seg_ids = filter_matches(matches, mk1, mk2)
     write_constraint_file(p.cstr_tmp, kept)
     if len(kept) == 0:
@@ -357,10 +395,11 @@ def prep_pair(
     return PairWork(p=p, out1=out1, bgim=bgim, segments=segments)
 
 
-def finish_pair(work: PairWork, seg_results: list) -> list[str]:
+def finish_pair(work: PairWork, seg_results: list, writer=None) -> list[str]:
     """Compose the per-segment results (flatten, para_gen.py:151-164),
     re-apply the background to uncovered warped pixels and write the
-    products. Returns the list triple [inpRGB, wRGB, flo]."""
+    products, through `writer` (an AsyncWriter; the same bytes) when given.
+    Returns the list triple [inpRGB, wRGB, flo]."""
     p = work.p
     flow = seg_results[0].flow.copy()
     wrgb = seg_results[0].warped_rgb.copy()
@@ -372,26 +411,29 @@ def finish_pair(work: PairWork, seg_results: list) -> list[str]:
         wmask[ob] = r.warped_mask[ob]
     if work.bgim is not None:
         wrgb = add_bg(wrgb, wmask, work.bgim)
-    flo.flow_write(p.flow_gen, flow.astype(np.float32))
-    save_image(p.rgb2_gen, wrgb)
-    save_image(p.msk2_gen, wmask)
+    if writer is not None:
+        writer.submit_flo(p.flow_gen, flow.astype(np.float32))
+        writer.submit_bytes(p.rgb2_gen, png_encode(wrgb))
+        writer.submit_bytes(p.msk2_gen, png_encode(wmask))
+    else:
+        flo.flow_write(p.flow_gen, flow.astype(np.float32))
+        save_image(p.rgb2_gen, wrgb)
+        save_image(p.msk2_gen, wmask)
     return [p.rgb1_gen, p.rgb2_gen, p.flow_gen]
 
 
-def process_pair(flags: PipelineFlags, p: PairPaths, deformer: ArapDeformer,
-                 bgpool: BackgroundPool) -> list[str] | None:
-    """One frame pair end to end (simple mode). Returns the list triple, or
-    None when the pair is skipped."""
-    work = prep_pair(flags, p, bgpool)
-    if work is None:
-        return None
+def solve_pair(work: PairWork, deformer: ArapDeformer,
+               writer=None) -> list[str]:
+    """Solve a prepped pair's segments and write its products (simple
+    mode); returns the list triple."""
     with TIMER.stage("solve+raster"):
         seg_results = [
             deformer.deform(work.out1, arap_mask, cons)
             for _, arap_mask, cons in work.segments
         ]
     with TIMER.stage("compose+outputs-io"):
-        return finish_pair(work, seg_results)
+        return finish_pair(work, seg_results, writer)
+
 
 
 def prep_chunk_dispatch_match(flags: PipelineFlags, pairs):
@@ -494,9 +536,10 @@ def dispatch_chunk_batched(prepped, cfg, weights, device):
     return works, runner, err
 
 
-def collect_chunk_batched(inflight, cfg, weights, device) -> list[str]:
+def collect_chunk_batched(inflight, cfg, weights, device,
+                          writer=None) -> list[str]:
     """Copy a dispatched chunk's products back, compose and write each
-    pair; returns its list lines."""
+    pair (through `writer` when given); returns its list lines."""
     works, runner, err = inflight
     results = None
     if err is None:
@@ -518,7 +561,7 @@ def collect_chunk_batched(inflight, cfg, weights, device) -> list[str]:
                 log.warning("pair failed: %s (%s)", w.p.rgb1_org, e2)
                 continue
             with TIMER.stage("compose+outputs-io"):
-                triples.append(" ".join(finish_pair(w, seg_results)))
+                triples.append(" ".join(finish_pair(w, seg_results, writer)))
         return triples
 
     triples = []
@@ -529,7 +572,7 @@ def collect_chunk_batched(inflight, cfg, weights, device) -> list[str]:
         ]
         if seg_results:
             with TIMER.stage("compose+outputs-io"):
-                triples.append(" ".join(finish_pair(w, seg_results)))
+                triples.append(" ".join(finish_pair(w, seg_results, writer)))
     return triples
 
 
@@ -546,8 +589,110 @@ def _check_ported(flags: PipelineFlags) -> None:
                                   "process per card with --shard I/N")
     if flags.mode not in ("simple", "batched"):
         raise ValueError(f"unknown --mode {flags.mode!r}")
-    if flags.matcher == "binary":
-        raise NotImplementedError("--matcher binary is not yet ported")
+    if flags.matcher not in ("native", "binary", "file"):
+        raise ValueError(f"unknown --matcher {flags.matcher!r}")
+    if flags.matcher == "binary" and not (flags.dm_bin
+                                          and osp.exists(flags.dm_bin)):
+        raise FileNotFoundError(f"--matcher binary: --dm_bin {flags.dm_bin!r} "
+                                "not found")
+
+
+def plan_chunks(pairs: list, chunk: int) -> list[list]:
+    """The batched loop's chunks of `chunk` pairs. The first chunk is half
+    as large, rounded down to whole matcher sub-batches (at least one):
+    nothing is in flight while it preps, so a smaller first chunk shortens
+    the pipeline's fill."""
+    first = max(MATCH_SUBBATCH, (chunk // 2) // MATCH_SUBBATCH
+                * MATCH_SUBBATCH)
+    if len(pairs) > chunk and first < chunk:
+        return [pairs[:first]] + [pairs[i : i + chunk]
+                                  for i in range(first, len(pairs), chunk)]
+    return [pairs[i : i + chunk] for i in range(0, len(pairs), chunk)]
+
+
+def _run_batched(flags, chunks, n_pairs, deformer, bgpool, device,
+                 writer) -> list[str]:
+    """The depth-2 batched loop (JAX para_gen.py:876-954). Iteration k:
+    enqueue chunk k+1's matcher (main thread, ahead of chunk k's solves on
+    the device), wait for chunk k's prep, start chunk k+1's prep on the
+    worker, enqueue chunk k's solves, then collect and write chunk k−1."""
+    cfg, weights = deformer.cfg, deformer.weights
+    prof = os.environ.get("ARAP_PROFILE")
+    triples: list[str] = []
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        fut = None
+        if chunks:
+            ha = prep_chunk_dispatch_match(flags, chunks[0])
+            fut = ex.submit(prep_chunk_finish, flags, chunks[0], ha, weights,
+                            bgpool)
+        inflight = None  # the dispatched state of chunk k−1
+        started = 0
+        for i, ch in enumerate(chunks):
+            print(f"{100.0 * started / max(n_pairs, 1):.3f}%", flush=True)
+            started += len(ch)
+            t0 = time.perf_counter()
+            if i + 1 < len(chunks):
+                ha_next = prep_chunk_dispatch_match(flags, chunks[i + 1])
+            t1 = time.perf_counter()
+            prepped = fut.result()
+            t2 = time.perf_counter()
+            if i + 1 < len(chunks):
+                fut = ex.submit(prep_chunk_finish, flags, chunks[i + 1],
+                                ha_next, weights, bgpool)
+            disp = dispatch_chunk_batched(prepped, cfg, weights, device)
+            t3 = time.perf_counter()
+            if inflight is not None:
+                triples += collect_chunk_batched(inflight, cfg, weights,
+                                                 device, writer)
+            t4 = time.perf_counter()
+            TIMER.add("chunk phaseA", t1 - t0)
+            TIMER.add("chunk prep-wait", t2 - t1)
+            TIMER.add("chunk dispatch", t3 - t2)
+            TIMER.add("chunk collect+finish", t4 - t3)
+            if prof:
+                print(f"  [chunk {i}] phaseA {t1 - t0:.2f}s prep-wait "
+                      f"{t2 - t1:.2f}s dispatch {t3 - t2:.2f}s "
+                      f"collect+finish {t4 - t3:.2f}s", flush=True)
+            inflight = disp
+        if inflight is not None:
+            t0 = time.perf_counter()
+            triples += collect_chunk_batched(inflight, cfg, weights, device,
+                                             writer)
+            t4 = time.perf_counter()
+            TIMER.add("chunk collect+finish", t4 - t0)
+    return triples
+
+
+def _run_simple(flags, pairs, deformer, bgpool, writer) -> list[str]:
+    """Simple mode: pair by pair; the next pair's host and matcher prep
+    runs on one worker thread while this pair solves (JAX
+    para_gen.py:955-992; one worker keeps the background draws in order)."""
+
+    def safe_prep(p):
+        try:
+            return prep_pair(flags, p, bgpool)
+        except (RuntimeError, *_DECODE_ERRORS) as e:
+            log.warning("pair prep failed: %s (%s)", p.rgb1_org, e)
+            return None
+
+    triples: list[str] = []
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        fut = ex.submit(safe_prep, pairs[0]) if pairs else None
+        for i, p in enumerate(pairs):
+            print(f"{100.0 * i / max(len(pairs), 1):.3f}%", flush=True)
+            work = fut.result()
+            if i + 1 < len(pairs):
+                fut = ex.submit(safe_prep, pairs[i + 1])
+            if work is None:
+                continue
+            try:
+                t = solve_pair(work, deformer, writer)
+            except (RuntimeError, *_DECODE_ERRORS) as e:
+                # keep generating; log the failure
+                log.warning("pair failed: %s (%s)", p.rgb1_org, e)
+                continue
+            triples.append(" ".join(t))
+    return triples
 
 
 def main_pipeline(
@@ -555,13 +700,20 @@ def main_pipeline(
 ) -> list[str]:
     """Generate the dataset of `flags`; returns the lines of the list file
     (inpRGB wRGB flo per pair) after the final existence sweep."""
+    global WRITE_ERRORS
     fw = FrameworkConfig.from_env(
         solver=solver_cfg or make_solver_config(flags.schedule),
         matcher=flags.matcher,
     )
     flags.matcher = fw.matcher
     _check_ported(flags)
+    if fw.raster == "host" and flags.mode != "simple":
+        # the exact host splat runs per pair; batched chunks rasterize on
+        # the device
+        print("ARAP_RASTER=host: forcing --mode simple (exact per-pair raster)")
+        flags.mode = "simple"
     device = torch.device(flags.device)
+    WRITE_ERRORS = 0
     rng = np.random.default_rng(flags.seed)
     bgpool = BackgroundPool(flags.bg_dir, rng)
     deformer = ArapDeformer(fw.solver, weights=fw.weights, crop=True,
@@ -576,36 +728,31 @@ def main_pipeline(
         _build.load("pcg")
         _build.load("zncc")
         print(f"warmup: kernels built and loaded in {time.time() - t0:.1f}s")
-    triples = []
     begin = time.time()
 
-    if flags.mode == "batched":
-        cfg = deformer.cfg
-        chunk = max(flags.narap, 1) * 2
-        chunks = [pairs[i : i + chunk] for i in range(0, len(pairs), chunk)]
-        handles = prep_chunk_dispatch_match(flags, chunks[0]) if chunks else None
-        for i, ch in enumerate(chunks):
-            print(f"{100.0 * i * chunk / max(len(pairs), 1):.3f}%", flush=True)
-            prepped = prep_chunk_finish(flags, ch, handles, deformer.weights,
-                                        bgpool)
-            inflight = dispatch_chunk_batched(prepped, cfg, deformer.weights,
-                                              device)
-            if i + 1 < len(chunks):
-                # the next chunk decodes on the host while these solves run
-                handles = prep_chunk_dispatch_match(flags, chunks[i + 1])
-            triples += collect_chunk_batched(inflight, cfg, deformer.weights,
-                                             device)
-    else:
-        for i, p in enumerate(pairs):
-            print(f"{100.0 * i / max(len(pairs), 1):.3f}%", flush=True)
-            try:
-                t = process_pair(flags, p, deformer, bgpool)
-            except (RuntimeError, *_DECODE_ERRORS) as e:
-                # keep generating; log the failure
-                log.warning("pair failed: %s (%s)", p.rgb1_org, e)
-                t = None
-            if t is not None:
-                triples.append(" ".join(t))
+    writer = None
+    if fw.async_io:
+        from ..native.runtime import AsyncWriter
+
+        writer = AsyncWriter(threads=max(1, int(fw.io_threads)))
+    try:
+        if flags.mode == "batched":
+            chunks = plan_chunks(pairs, max(flags.narap, 1) * 2)
+            triples = _run_batched(flags, chunks, len(pairs), deformer,
+                                   bgpool, device, writer)
+        else:
+            triples = _run_simple(flags, pairs, deformer, bgpool, writer)
+    finally:
+        if writer is not None:
+            writer.close()
+            n_err = WRITE_ERRORS = writer.errors()
+            if n_err:
+                # failed or truncated writes (disk full, permissions): the
+                # existence sweep below checks presence only
+                log.error("%d asynchronous product writes failed (possibly "
+                          "truncated files on disk); the all_files.list "
+                          "existence sweep cannot detect truncation: verify "
+                          "the output tree", n_err)
     print(f"done in {(time.time() - begin) / 60:.2f} mins")
     if os.environ.get("ARAP_PROFILE"):
         print(TIMER.report())
@@ -633,7 +780,7 @@ def parse_args(argv=None) -> PipelineFlags:
     parser.add_argument("--input", type=str, required=True)
     parser.add_argument("--output", type=str, required=True)
     parser.add_argument("--bg_dir", type=str, default=None,
-                        help="background image pool directory (needs PIL)")
+                        help="background image pool directory")
     parser.add_argument("--gpu", nargs="*", type=int, default=[0],
                         help="accepted for CLI parity; the card is --device")
     parser.add_argument("--multseg", action="store_true", default=False,
@@ -643,13 +790,14 @@ def parse_args(argv=None) -> PipelineFlags:
     parser.add_argument("--narap", type=int, default=2,
                         help="batched mode: chunks of 2 x this many pairs")
     parser.add_argument("--size", nargs=2, type=int, default=None,
-                        help="[width] [height] to resize+crop all frames to "
-                        "(needs PIL)")
+                        help="[width] [height] to resize+crop all frames to")
     parser.add_argument("--fd", type=int, default=1,
                         help="frame distance between the pair")
     parser.add_argument("--matcher", choices=["native", "binary", "file"],
                         default="native",
-                        help="binary (an external matcher) is not yet ported")
+                        help="native = the ZNCC pyramid matcher on --device; "
+                        "binary = an external matcher (--dm_bin); file = the "
+                        "cached tmpCnstr files")
     parser.add_argument("--dm_bin", default=None,
                         help="external matcher binary (with --matcher binary)")
     parser.add_argument("--arap_bin", default=None,

@@ -50,11 +50,12 @@ def main(argv=None):
     p.add_argument("--root", required=True)
     p.add_argument("--fd", nargs="*", type=int, default=FD_DEFAULT)
     p.add_argument("--backend", choices=["device", "host"], default="device",
-                   help="host (the reference-exact splat) is not yet ported")
+                   help="device = seed-and-gather rasterizer on --device; "
+                        "host = reference-exact splat (C++, on the host)")
     p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda)")
+                   help="torch device of --backend device (default cuda)")
     a = p.parse_args(argv)
-    device = cli_device(a.device)
+    device = cli_device(a.device) if a.backend == "device" else None
     jobs = scan_jobs(a.root, a.fd)
     print(f"{len(jobs)} warp jobs")
     for rgb, msk, flo_path, wrgb, wmsk in jobs:

@@ -5,9 +5,12 @@ Env vars (``ARAP_*``, applied over the keyword overrides; env wins):
 - ARAP_BACKEND        auto | plain | cuda     (PCG backend; "fused" is a
                                                SolverConfig opt-in only, as
                                                in the JAX package)
-- ARAP_RASTER         device | host           (rasterizer; host is not ported)
+- ARAP_RASTER         device | host           (rasterizer; host is the
+                                               reference-exact C++ splat)
 - ARAP_MATCHER        native | binary | file  (correspondence source)
 - ARAP_W_FIT / ARAP_W_REG                      (energy weights)
+- ARAP_ASYNC_IO       0 | 1                   (para_gen's native threaded
+                                               writer; default 1)
 
 ARAP_TALL_KERNEL is read by the PCG kernel's wrapper at each call
 (ops/pcg.tall_kernel_enabled): set, it runs the stacked-plane layout.
@@ -33,6 +36,8 @@ class FrameworkConfig:
     weights: ArapWeights = field(default_factory=ArapWeights)
     raster: str = "device"  # device | host
     matcher: str = "native"  # native | binary | file
+    async_io: bool = True  # native threaded writer for .flo / PNG products
+    io_threads: int = 4
 
     @classmethod
     def from_env(cls, **overrides) -> "FrameworkConfig":
@@ -56,6 +61,9 @@ class FrameworkConfig:
         matcher = os.environ.get("ARAP_MATCHER")
         if matcher in ("native", "binary", "file"):
             cfg.matcher = matcher
+        async_io = os.environ.get("ARAP_ASYNC_IO")
+        if async_io in ("0", "1"):
+            cfg.async_io = async_io == "1"
         wf = os.environ.get("ARAP_W_FIT")
         wr = os.environ.get("ARAP_W_REG")
         if wf or wr:

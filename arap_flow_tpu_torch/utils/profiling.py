@@ -32,6 +32,12 @@ class StageTimer:
                 self.totals[name] += dt
                 self.counts[name] += 1
 
+    def add(self, name: str, seconds: float) -> None:
+        """Add a span measured by the caller to stage `name`."""
+        with self._lock:
+            self.totals[name] += seconds
+            self.counts[name] += 1
+
     def report(self) -> str:
         lines = ["stage                      total_s   calls   mean_ms"]
         for name in sorted(self.totals, key=lambda n: -self.totals[n]):

@@ -66,6 +66,29 @@ Phases, each reported on its own line; any failure exits non-zero:
    0.05 px per segment; one fused launch per solve chunk and no PCG
    launch; cold and warm seconds. With --profile, one more warm run under
    torch.profiler prints its device time by kernel and busy share.
+7. para_gen's host layer (phase 1 builds the native host library with g++
+   beside the nvcc builds and prints its seconds):
+   7a. ``ArapDeformer(raster="host")`` on phase 3's pair: the C++ splat of
+       the solved flow bitwise equal to its numpy plain version and to the
+       deformer's products, the share of pixels where the host and the
+       device rasterizer's masks agree on the same flow, seconds per splat,
+       the rigid EPE (< 1 px) and the flow against phase 3's.
+   7b. a JPEG tree at DAVIS's full resolution, written with the port's
+       encoder at quality 95: 5 frames at 1280x720 with a rigid ellipse and
+       the non-rigid object of scripts/synth_nonrigid.py (loaded by path),
+       3 backgrounds. Every decoded file has PSNR >= 30 dB against its
+       source; ``para_gen --mode batched --multseg --size 854 480 --bg_dir
+       --seed 0`` at 19x8x400, cold and warm: the list file and every
+       product, no failed asynchronous write, the launches of both kernels
+       as predicted, and in preprocessed coordinates the rigid object's
+       median |flow - s*t| < 1 px and the non-rigid object's median EPE <
+       0.8 px against its analytic flow mapped through the resize; seconds
+       per pair and the warm run's stages (chunk prep-wait, dispatch,
+       collect+finish and those inside them).
+   7c. ``--matcher binary`` on 2 pairs of phase 5's tree with a stand-in
+       matcher script (the reference's DeepMatching argv) that copies
+       prepared translation matches: the list file, the flow gate, no
+       ZNCC launch.
 
 The last line is the JSON device record; the line before it lists the
 kernels with their launch counts, errors, times and bounds.
@@ -144,14 +167,24 @@ def phase_env():
     return smi
 
 
-def phase_build():
+def phase_build() -> float:
+    """Build the CUDA libraries and, beside them, the native host library
+    (g++); returns the host library's build seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from arap_flow_tpu_torch import _build
 
-    paths, seconds = _build.build()
+    with ThreadPoolExecutor(1) as ex:
+        native = ex.submit(_build.build_native)
+        paths, seconds = _build.build()
+        native_path, native_s = native.result()
     for stem in ("pcg", "zncc", "fused_solver"):
         _build.load(stem)
+    _build.load_native()
     say(f"phase 1 build: {len(paths)} libraries "
-        f"{[os.path.relpath(p, ROOT) for p in paths]} in {seconds:.2f} s")
+        f"{[os.path.relpath(p, ROOT) for p in paths]} in {seconds:.2f} s; "
+        f"host library {os.path.relpath(native_path, ROOT)} (g++) in "
+        f"{native_s:.2f} s beside them")
     for path in paths:
         log = path[: -len(".so")] + ".log"
         if os.path.exists(log):
@@ -160,6 +193,7 @@ def phase_build():
                     if "registers" in line or "spill" in line or (
                             "Compiling entry" in line):
                         say("  ptxas: " + line.strip())
+    return native_s
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -895,7 +929,7 @@ def rgb_texture(H: int, W: int, seed: int) -> np.ndarray:
     return np.clip(base + detail, 0, 255).astype(np.uint8)
 
 
-def make_pipeline_tree(root: str) -> None:
+def make_pipeline_tree(root: str, n_frames: int = PIPE_FRAMES) -> None:
     from arap_flow_tpu_torch.io.image import save_image
 
     H, W = FRAME_H, FRAME_W
@@ -904,7 +938,7 @@ def make_pipeline_tree(root: str) -> None:
     bg = rgb_texture(H, W, 20) // 3
     texs = [rgb_texture(H, W, 21 + k) for k in range(len(PIPE_OBJECTS))]
     yy, xx = np.mgrid[0:H, 0:W]
-    for t in range(PIPE_FRAMES):
+    for t in range(n_frames):
         img = bg.copy()
         mask = np.zeros((H, W), np.uint8)
         for k, ((cy, cx), (ry, rx), (dx, dy)) in enumerate(PIPE_OBJECTS):
@@ -917,25 +951,31 @@ def make_pipeline_tree(root: str) -> None:
                    mask)
 
 
-def predicted_launches(inp: str, out: str, cfg, weights):
+def predicted_launches(inp: str, out: str, cfg, weights, masks=None):
     """Kernel launches the code's shapes predict for the run that wrote
     `out`: the matcher's searches for one sub-batch, and one PCG call per
     GN step for every solve chunk the kept constraints give (all pairs are
-    one batched chunk). Also returns the kept constraints per (pair,
-    object)."""
+    one batched chunk). `masks`: each pair's first annotation mask as the
+    pipeline saw it (default: the tree's own). Also returns the kept
+    constraints per (pair, object)."""
     from arap_flow_tpu_torch.io.constraints import read_constraint_file
     from arap_flow_tpu_torch.io.image import load_mask, segment_mask_to_arap
     from arap_flow_tpu_torch.ops.matching import clamp_match_params, zncc_calls
     from arap_flow_tpu_torch.pipeline.batch import make_task, max_chunk_for
     from arap_flow_tpu_torch.pipeline.para_gen import MATCH_SUBBATCH
 
-    n_pairs = PIPE_FRAMES - 1
-    _, levels = clamp_match_params(FRAME_H, FRAME_W)
+    if masks is None:
+        masks = [load_mask(os.path.join(inp, "orgMasks", "seq0",
+                                        f"{t:05d}.png"))
+                 for t in range(PIPE_FRAMES - 1)]
+    n_pairs = len(masks)
+    H, W = masks[0].shape
+    _, levels = clamp_match_params(H, W)
     zncc = -(-n_pairs // MATCH_SUBBATCH) * zncc_calls(levels)
     groups, fallbacks, kept = {}, 0, {}
-    rgb = np.zeros((FRAME_H, FRAME_W, 3), np.uint8)
+    rgb = np.zeros((H, W, 3), np.uint8)
     for t in range(n_pairs):
-        mk1 = load_mask(os.path.join(inp, "orgMasks", "seq0", f"{t:05d}.png"))
+        mk1 = masks[t]
         cons = read_constraint_file(
             os.path.join(out, "tmpCnstr", "seq0", f"{t:05d}.txt"))
         seg = mk1[cons[:, 1], cons[:, 0]]
@@ -966,11 +1006,12 @@ def run_pipeline(inp: str, out: str, cfg):
     return lines, time.perf_counter() - t0
 
 
-def check_pipeline_products(inp: str, out: str, lines) -> None:
+def check_pipeline_products(inp: str, out: str, lines,
+                            n_pairs: int = PIPE_FRAMES - 1,
+                            label: str = "phase 5") -> None:
     from arap_flow_tpu_torch.io.flo import flow_read
     from arap_flow_tpu_torch.io.image import load_mask, load_rgb
 
-    n_pairs = PIPE_FRAMES - 1
     with open(os.path.join(out, "all_files.list")) as f:
         listed = f.read().splitlines()
     if len(listed) != n_pairs or listed != lines:
@@ -991,7 +1032,7 @@ def check_pipeline_products(inp: str, out: str, lines) -> None:
         for k, (_, _, (dx, dy)) in enumerate(PIPE_OBJECTS):
             obj = mk1 == k + 1
             err = float(np.median(np.hypot(u[obj] - dx, v[obj] - dy)))
-            say(f"phase 5 pair {t} object {k + 1}: median |flow - ({dx}, "
+            say(f"{label} pair {t} object {k + 1}: median |flow - ({dx}, "
                 f"{dy})| {err:.4f} px over {int(obj.sum())} px")
             if not err < 1.0:
                 raise AssertionError(f"pair {t} object {k + 1}: median flow "
@@ -1303,6 +1344,345 @@ def phase_fused_pair(smi, probs, tasks, calls, ref_flows, ref_secs,
     return launches["anneal_solve_fused"]
 
 
+# Phase 7b's JPEG tree: DAVIS's full resolution, 5 frames, brought to
+# 854x480 by --size; a rigid textured ellipse and the JAX gates' non-rigid
+# object (scripts/synth_nonrigid.py) at 1.5x the bench's scale, so both are
+# the bench's size after the resize; 3 JPEG backgrounds.
+JPEG_H, JPEG_W, JPEG_FRAMES, JPEG_QUALITY = 720, 1280, 5, 95
+JPEG_SIZE = (FRAME_W, FRAME_H)  # --size 854 480
+JPEG_RIGID = ((200, 330), (135, 210), (9, 13))  # centre, radii, (dy, dx) a frame
+JPEG_NONRIGID = ((470, 930), (90, 135), 9.0, (6, -10))  # centre, radii, amp, drift
+JPEG_BACKGROUNDS = ((600, 1000), (720, 1280), (540, 960))
+
+
+def synth_nonrigid():
+    """scripts/synth_nonrigid.py (numpy only), loaded by its path."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "scripts", "synth_nonrigid.py")
+    spec = importlib.util.spec_from_file_location("synth_nonrigid", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_native(smi, probs, native_s: float, pair_flows) -> None:
+    """7a: the native host library on phase 3's pair: ArapDeformer(raster=
+    "host") on the card, its C++ splat against the numpy plain version on
+    the same warp (bitwise), and against the device rasterizer's mask on
+    the same flow."""
+    import torch
+
+    from arap_flow_tpu_torch.models.arap import ArapDeformer
+    from arap_flow_tpu_torch.native.host_raster import (rasterize_warp_exact,
+                                                        warp_from_flow)
+    from arap_flow_tpu_torch.native.runtime import rasterize_warp
+    from arap_flow_tpu_torch.ops.rasterize import rasterize_flow
+    from arap_flow_tpu_torch.ops.solver import SolverConfig
+
+    dev = torch.device("cuda", 0)
+    say(f"phase 7a native host library: built with g++ in {native_s:.2f} s "
+        "(phase 1, beside nvcc)")
+    deformer = ArapDeformer(SolverConfig(), crop=True, raster="host",
+                            device=dev)
+    for j, (rgb, mask, cons, motion) in enumerate(probs):
+        res = deformer.deform(rgb, mask, cons)
+        obj = mask == 0
+        d_flow = np.abs(res.flow - pair_flows[j])[obj]
+        warp = warp_from_flow(res.flow)
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            c_rgb, c_mask = rasterize_warp(warp, rgb, mask)
+            secs.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        p_rgb, p_mask = rasterize_warp_exact(warp, rgb, mask)
+        plain_s = time.perf_counter() - t0
+        bitwise = (np.array_equal(c_rgb, p_rgb)
+                   and np.array_equal(c_mask, p_mask)
+                   and np.array_equal(res.warped_rgb, c_rgb)
+                   and np.array_equal(res.warped_mask, c_mask))
+        _, dmask = rasterize_flow(
+            torch.as_tensor(np.ascontiguousarray(res.flow.transpose(2, 0, 1)),
+                            device=dev),
+            torch.as_tensor(rgb.transpose(2, 0, 1), dtype=torch.float32,
+                            device=dev),
+            torch.as_tensor(mask, device=dev))
+        dmask = dmask.to(torch.uint8).cpu().numpy() > 0
+        hmask = c_mask > 0
+        union = hmask | dmask
+        epe = rigid_epe_median(res.flow, mask, SEG_SHAPES[j][0], motion)
+        line = (f"phase 7a segment {j}: host splat bitwise equal to its plain "
+                f"version: {bitwise}; {int(hmask.sum())} px covered; host and "
+                f"device masks agree on {float((hmask == dmask).mean()):.6f} "
+                f"of the frame, {float((hmask == dmask)[union].mean()):.6f} "
+                f"of the covered pixels; splat {np.median(secs):.4f} s "
+                f"(numpy plain version {plain_s:.3f} s); median rigid EPE "
+                f"{epe:.4f} px; |flow - phase 3's| median "
+                f"{float(np.median(d_flow)):.2e}, max {float(d_flow.max()):.2e}")
+        say(line)
+        if not (bitwise and hmask.sum() > 0 and epe < 1.0
+                and float(np.median(d_flow)) < 0.01):
+            raise AssertionError(line)
+
+
+def luma_texture(H: int, W: int, seed: int) -> np.ndarray:
+    """Gray 8x8 blocks and 2x2 detail, with a gentle colour tint in 32x32
+    blocks and no clipping: the detail is in luma, as in natural frames.
+    (make_textures' saturated per-channel colour changes every 2 and 8 px
+    are chroma detail that 4:2:0 discards: 24-30 dB at quality 95, PIL's
+    encoder as the port's.)"""
+    rng = np.random.default_rng(seed)
+
+    def blocks(n, lo, hi, ch):
+        return np.kron(rng.uniform(lo, hi, (H // n + 2, W // n + 2, ch)),
+                       np.ones((n, n, 1)))[:H, :W]
+
+    img = blocks(8, 50, 200, 1) + blocks(32, -25, 25, 3) + blocks(2, -25, 25, 1)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def make_jpeg_tree(root: str, nr) -> list:
+    """Phase 7b's tree, every image a JPEG from the port's encoder (the
+    masks PNG); returns (path, source array) of every JPEG."""
+    from arap_flow_tpu_torch.io.image import save_image
+
+    H, W = JPEG_H, JPEG_W
+    for d in ("orgRGB/seq0", "orgMasks/seq0", "bg"):
+        os.makedirs(os.path.join(root, d))
+    tex = luma_texture(H, W, 7)
+    bg = (luma_texture(H, W, 8)[::-1] * 0.4).astype(np.uint8)
+    (cy, cx), (ry, rx), (dy, dx) = JPEG_RIGID
+    (ny, nx), (nry, nrx), amp, (ndy, ndx) = JPEG_NONRIGID
+    yy, xx = np.mgrid[0:H, 0:W]
+    written = []
+    for t in range(JPEG_FRAMES):
+        img = bg.copy()
+        mask = np.zeros((H, W), np.uint8)
+        ob = (((yy - cy - dy * t) / ry) ** 2
+              + ((xx - cx - dx * t) / rx) ** 2) < 1.0
+        img[ob] = tex[(yy[ob] - dy * t) % H, (xx[ob] - dx * t) % W]
+        mask[ob] = 1
+        nr.draw_nonrigid(img, mask, tex, 2, ny + ndy * t, nx + ndx * t, nry,
+                         nrx, amp, t)
+        path = os.path.join(root, "orgRGB", "seq0", f"{t:05d}.jpg")
+        save_image(path, img, quality=JPEG_QUALITY)
+        save_image(os.path.join(root, "orgMasks", "seq0", f"{t:05d}.png"),
+                   mask)
+        written.append((path, img))
+    for i, (bh, bw) in enumerate(JPEG_BACKGROUNDS):
+        img = luma_texture(bh, bw, 30 + i)
+        path = os.path.join(root, "bg", f"b{i}.jpg")
+        save_image(path, img, quality=JPEG_QUALITY)
+        written.append((path, img))
+    return written
+
+
+def run_jpeg_pipeline(inp: str, out: str, cfg):
+    import torch
+
+    from arap_flow_tpu_torch.pipeline import para_gen
+
+    flags = para_gen.PipelineFlags(
+        input=inp, output=out, multseg=True, seed=0, mode="batched",
+        size=JPEG_SIZE, bg_dir=os.path.join(inp, "bg"), device="cuda")
+    t0 = time.perf_counter()
+    lines = para_gen.main_pipeline(flags, solver_cfg=cfg)
+    torch.cuda.synchronize()
+    return lines, time.perf_counter() - t0, para_gen.WRITE_ERRORS
+
+
+def check_jpeg_products(inp: str, out: str, lines, nr, pre_masks) -> None:
+    """The list file, the products, and the flow gates in preprocessed
+    coordinates: the rigid object's median |flow − s·(dx, dy)| < 1 px, the
+    non-rigid object's median EPE < 0.8 px against the analytic flow
+    mapped through the resize (nr_check_epe with the object's centre, radii
+    and amplitude in preprocessed pixels)."""
+    from arap_flow_tpu_torch.io.flo import flow_read
+    from arap_flow_tpu_torch.io.image import load_mask, load_rgb
+
+    n_pairs = JPEG_FRAMES - 1
+    with open(os.path.join(out, "all_files.list")) as f:
+        listed = f.read().splitlines()
+    if len(listed) != n_pairs or listed != lines:
+        raise AssertionError(f"phase 7b: all_files.list holds {len(listed)} "
+                             f"lines, expected {n_pairs}")
+    for t, line in enumerate(listed):
+        rgb1, rgb2, flo = line.split(" ")
+        for path in (rgb1, rgb2):
+            if load_rgb(path).shape != (FRAME_H, FRAME_W, 3):
+                raise AssertionError(f"{path}: bad image")
+        for sub in ("inpMasks", "wMasks"):
+            m = load_mask(os.path.join(out, sub, "seq0", f"{t:05d}.png"))
+            if m.shape != (FRAME_H, FRAME_W):
+                raise AssertionError(f"{sub} {t}: bad mask")
+        u, v = flow_read(flo)
+        if u.shape != (FRAME_H, FRAME_W) or not (
+                np.isfinite(u).all() and np.isfinite(v).all()):
+            raise AssertionError(f"{flo}: bad flow")
+    r = max((JPEG_SIZE[0] + 10) / JPEG_W, (JPEG_SIZE[1] + 10) / JPEG_H)
+    w, h = int(JPEG_W * r), int(JPEG_H * r)
+    left, upper = w // 2 - JPEG_SIZE[0] // 2, h // 2 - JPEG_SIZE[1] // 2
+    sx, sy = w / JPEG_W, h / JPEG_H  # the resize's own scales
+
+    def pre(cy, cx):  # a point of the original frame, in preprocessed pixels
+        return sy * (cy + 0.5) - 0.5 - upper, sx * (cx + 0.5) - 0.5 - left
+
+    (_, _, (dy, dx)) = JPEG_RIGID
+    (ny, nx), (nry, nrx), amp, (ndy, ndx) = JPEG_NONRIGID
+    s = 0.5 * (sx + sy)
+    for t in range(n_pairs):
+        u, v = flow_read(os.path.join(out, "Flow", "seq0", f"{t:05d}.flo"))
+        mk = pre_masks[t]
+        obj = mk == 1
+        err = float(np.median(np.hypot(u[obj] - sx * dx, v[obj] - sy * dy)))
+        say(f"phase 7b pair {t} rigid object: median |flow - ({sx * dx:.3f}, "
+            f"{sy * dy:.3f})| {err:.4f} px over {int(obj.sum())} px")
+        if not (err < 1.0 and obj.sum() > 1000):
+            raise AssertionError(f"phase 7b pair {t}: rigid median flow error "
+                                 f"{err} >= 1 px")
+        c0 = pre(ny + ndy * t, nx + ndx * t)
+        c1 = pre(ny + ndy * (t + 1), nx + ndx * (t + 1))
+        ok, msg = nr.nr_check_epe(u, v, mk, 2, c0, c1, s * nry, s * nrx,
+                                  s * amp, t, thresh=0.8,
+                                  label=f"pair {t} non-rigid object")
+        say("phase 7b" + msg)
+        if not (ok and (mk == 2).sum() > 1000 and "skipped" not in msg):
+            raise AssertionError(f"phase 7b: {msg.strip()}")
+
+
+def phase_jpeg_pipeline(smi: str) -> None:
+    """7b: para_gen on a JPEG tree at 1280x720 with --size 854 480 and
+    --bg_dir, cold and warm."""
+    from arap_flow_tpu_torch.io.image import load_mask, load_rgb
+    from arap_flow_tpu_torch.ops.energy import ArapWeights
+    from arap_flow_tpu_torch.ops.solver import SolverConfig
+    from arap_flow_tpu_torch.pipeline import para_gen
+    from arap_flow_tpu_torch.utils.profiling import StageTimer
+
+    nr = synth_nonrigid()
+    cfg = SolverConfig()
+    n_pairs = JPEG_FRAMES - 1
+    with tempfile.TemporaryDirectory() as tmp:
+        inp = os.path.join(tmp, "in")
+        t0 = time.perf_counter()
+        written = make_jpeg_tree(inp, nr)
+        enc_s = time.perf_counter() - t0
+        psnrs = []
+        for path, src in written:
+            got = load_rgb(path)
+            mse = float(np.mean((got.astype(np.float64) - src) ** 2))
+            psnrs.append(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+        line = (f"phase 7b JPEG tree: {len(written)} files ({JPEG_FRAMES} "
+                f"frames {JPEG_W}x{JPEG_H}, {len(JPEG_BACKGROUNDS)} "
+                f"backgrounds) at quality {JPEG_QUALITY} in {enc_s:.2f} s; "
+                f"decoded PSNR min {min(psnrs):.2f} dB, max "
+                f"{max(psnrs):.2f} dB")
+        say(line)
+        if min(psnrs) < 30.0:
+            raise AssertionError(line)
+        pre_masks = [
+            para_gen.scale_rotate(load_rgb(written[t][0]),
+                                  load_mask(os.path.join(
+                                      inp, "orgMasks", "seq0",
+                                      f"{t:05d}.png")), JPEG_SIZE)[2]
+            for t in range(n_pairs)]
+        zero_counts()
+        lines, cold, cold_err = run_jpeg_pipeline(
+            inp, os.path.join(tmp, "cold"), cfg)
+        launches = read_counts()
+        z_exp, p_exp, kept, groups = predicted_launches(
+            inp, os.path.join(tmp, "cold"), cfg, ArapWeights(), pre_masks)
+        line = (f"phase 7b launches: zncc_search {launches['zncc_search']} "
+                f"(predicted {z_exp}), pcg_fixed {launches['pcg_fixed']} "
+                f"(predicted {p_exp}; solve groups {groups}); kept "
+                f"constraints per (pair, object) {kept}; writer errors "
+                f"{cold_err}")
+        say(line)
+        if ((launches["zncc_search"], launches["pcg_fixed"],
+             launches["pcg_fixed_tall"], launches["anneal_solve_fused"])
+                != (z_exp, p_exp, 0, 0) or cold_err != 0):
+            raise AssertionError(line)
+        check_jpeg_products(inp, os.path.join(tmp, "cold"), lines, nr,
+                            pre_masks)
+        para_gen.TIMER = StageTimer()
+        zero_counts()
+        lines, warm, warm_err = run_jpeg_pipeline(
+            inp, os.path.join(tmp, "warm"), cfg)
+        warm_launches = read_counts()
+        if (warm_launches["zncc_search"], warm_launches["pcg_fixed"],
+                warm_err) != (z_exp, p_exp, 0):
+            raise AssertionError(f"phase 7b warm run: launches "
+                                 f"{warm_launches}, writer errors {warm_err}")
+        check_jpeg_products(inp, os.path.join(tmp, "warm"), lines, nr,
+                            pre_masks)
+        say(f"phase 7b seconds per pair: cold {cold / n_pairs:.3f}, warm "
+            f"{warm / n_pairs:.3f} ({n_pairs} pairs, JPEG {JPEG_W}x{JPEG_H} "
+            f"-> --size {JPEG_SIZE[0]} {JPEG_SIZE[1]}, backgrounds; {smi})")
+        say("phase 7b warm-run stages:\n" + para_gen.TIMER.report())
+
+
+def write_stand_in_matcher(root: str, n_pairs: int) -> str:
+    """A stand-in external matcher (the reference's DeepMatching contract,
+    ``DM src1 src2 -nt 0 -out CSTR -ngh_rad 100``): a shell script that
+    copies the match file prepared for its first frame, the objects' grid
+    points every 8 px moved by their known translations."""
+    from arap_flow_tpu_torch.io.image import load_mask
+
+    mdir = os.path.join(root, "matches")
+    os.makedirs(mdir)
+    for t in range(n_pairs):
+        mk = load_mask(os.path.join(root, "in", "orgMasks", "seq0",
+                                    f"{t:05d}.png"))
+        rows = []
+        for k, (_, _, (dx, dy)) in enumerate(PIPE_OBJECTS):
+            ys, xs = np.nonzero(mk[::8, ::8] == k + 1)
+            rows += [f"{8 * x} {8 * y} {8 * x + dx} {8 * y + dy} 0.9"
+                     for y, x in zip(ys, xs)]
+        with open(os.path.join(mdir, f"{t:05d}.png.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    script = os.path.join(root, "stand_in_dm.sh")
+    with open(script, "w") as f:
+        f.write("#!/bin/sh\n"
+                f'exec cp {mdir}/$(basename "$1").txt "$6"\n')
+    os.chmod(script, 0o755)
+    return script
+
+
+def phase_binary_matcher(smi: str) -> None:
+    """7c: --matcher binary on 2 pairs of phase 5's tree."""
+    import torch
+
+    from arap_flow_tpu_torch.ops.solver import SolverConfig
+    from arap_flow_tpu_torch.pipeline import para_gen
+
+    n_pairs = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        inp = os.path.join(tmp, "in")
+        make_pipeline_tree(inp, n_frames=n_pairs + 1)
+        dm = write_stand_in_matcher(tmp, n_pairs)
+        flags = para_gen.PipelineFlags(
+            input=inp, output=os.path.join(tmp, "out"), multseg=True, seed=0,
+            mode="batched", matcher="binary", dm_bin=dm, device="cuda")
+        zero_counts()
+        t0 = time.perf_counter()
+        lines = para_gen.main_pipeline(flags, solver_cfg=SolverConfig())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counts()
+        check_pipeline_products(inp, flags.output, lines, n_pairs=n_pairs,
+                                label="phase 7c")
+        line = (f"phase 7c --matcher binary: {len(lines)} pairs in "
+                f"{secs:.3f} s; launches zncc_search "
+                f"{launches['zncc_search']}, pcg_fixed "
+                f"{launches['pcg_fixed']}; writer errors "
+                f"{para_gen.WRITE_ERRORS} ({smi})")
+        say(line)
+        if (launches["zncc_search"] != 0 or launches["pcg_fixed"] <= 0
+                or para_gen.WRITE_ERRORS != 0):
+            raise AssertionError(line)
+
+
 def main() -> int:
     import torch
 
@@ -1319,7 +1699,7 @@ def main() -> int:
     # every phase runs the standard PCG layout unless it sets the variable
     os.environ.pop("ARAP_TALL_KERNEL", None)
     smi = phase_env()
-    phase_build()
+    native_s = phase_build()
     probs, tasks = make_tasks()
     calls = solve_calls(tasks)
     main_shapes = sorted(set(calls))
@@ -1341,6 +1721,9 @@ def main() -> int:
     f_err, f_ms, f_plain = phase_fused(smi, call_ms)
     f_launches = phase_fused_pair(smi, probs, tasks, calls, pair_flows,
                                   pair_secs, args.profile)
+    phase_native(smi, probs, native_s, pair_flows)
+    phase_jpeg_pipeline(smi)
+    phase_binary_matcher(smi)
     p_bound, p_by = pcg_bound(*PIPE_PCG_SHAPE)
     f_bound, f_by = fused_bound(*PIPE_PCG_SHAPE, *FUSED_UNIT)
     pcg_row = {"route": "cuda", "source": "arap_flow_tpu_torch/csrc/pcg.cu",

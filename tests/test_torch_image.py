@@ -4,8 +4,9 @@ against the JAX package's io/image.py.
 The codec must read what PIL writes bit for bit (gray, gray+alpha, RGB,
 RGBA and palette images of 1-8 bits, at zlib levels that make PIL pick
 every row filter), and PIL must read the codec's files back bit for bit.
-What the codec does not read (JPEG) goes through PIL, and where PIL is
-missing that raises an ImportError that names it.
+JPEG files go through the native codec (tests/test_torch_jpeg.py holds it
+to PIL). What neither codec reads (16-bit PNGs, other formats) goes through
+PIL, and where PIL is missing that raises an ImportError that names it.
 """
 
 import builtins
@@ -111,6 +112,7 @@ def test_corrupt_png_raises(tmp_path):
 
 
 def test_jpeg_goes_through_pil(tmp_path):
+    """A JPEG that PIL wrote loads as PIL (and the JAX package) load it."""
     p = tmp_path / "f.jpg"
     Image.fromarray(_natural(16, 24, 5)).save(p, quality=95)
     rgb, _ = _pil_reference(p)
@@ -136,12 +138,19 @@ def test_missing_pil_raises_naming_it(tmp_path, monkeypatch):
             raise ImportError("No module named 'PIL'")
         return real_import(name, *args, **kwargs)
 
+    g16 = tmp_path / "g16.png"
+    Image.fromarray(np.zeros((5, 6), np.uint16)).save(g16)
+    Image.fromarray(np.zeros((4, 4), np.uint8)).save(tmp_path / "f.bmp")
     monkeypatch.setattr(builtins, "__import__", no_pil)
     assert TI.load_rgb(png).shape == (8, 8, 3)  # PNGs need no PIL
     TI.save_image(tmp_path / "g.png", np.zeros((4, 4), np.uint8))
-    for call in (lambda: TI.load_rgb(tmp_path / "f.jpg"),
-                 lambda: TI.save_image(tmp_path / "f.jpg", np.zeros((4, 4))),
-                 lambda: TI.image_size(tmp_path / "f.jpg")):
+    # nor do baseline JPEGs
+    TI.save_image(tmp_path / "f.jpg", _natural(8, 8, 7))
+    assert TI.load_rgb(tmp_path / "f.jpg").shape == (8, 8, 3)
+    assert TI.image_size(tmp_path / "f.jpg") == (8, 8)
+    for call in (lambda: TI.load_mask(g16),
+                 lambda: TI.save_image(tmp_path / "g.bmp", np.zeros((4, 4))),
+                 lambda: TI.image_size(tmp_path / "f.bmp")):
         with pytest.raises(ImportError, match="PIL"):
             call()
 

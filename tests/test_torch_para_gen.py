@@ -7,11 +7,14 @@ backend "xla", the port on the CPU). Tolerances: the per-object median flow
 within 0.05 px (the full-solve bound of tests/test_pallas_pcg.py:59),
 warped masks agreeing on > 98% of pixels, and the same all_files.list
 relative to the output root. The host helpers (scan, gates, filter,
-preprocessing, backgrounds) are held equal.
+preprocessing, backgrounds) are held equal. ``--matcher binary`` runs a
+stand-in matcher script with the reference's shell contract, as
+tests/test_matcher_binary.py does for the JAX package.
 """
 
 import os
 import os.path as osp
+import stat
 
 import numpy as np
 import pytest
@@ -249,8 +252,7 @@ def test_parse_args_equal():
         TP.parse_args(["--input", "a", "--output", "b", "--fd", "0"])
 
 
-@pytest.mark.parametrize("flags", [dict(mode="sharded"),
-                                   dict(matcher="binary")])
+@pytest.mark.parametrize("flags", [dict(mode="sharded")])
 def test_unported_options_raise(tmp_path, flags):
     f = TP.PipelineFlags(input=str(tmp_path), output=str(tmp_path / "o"),
                          device="cpu", **flags)
@@ -320,3 +322,106 @@ def test_failed_chunk_retries_per_pair(runs, tmp_path, monkeypatch):
         u, v = JF.flow_read(osp.join(str(tmp_path), name))
         ru, rv = JF.flow_read(osp.join(to, name))
         assert np.abs(u - ru).max() < 0.05 and np.abs(v - rv).max() < 0.05
+
+
+def _fake_dm(tmp_path, matches_dir, status=0):
+    """A stand-in matcher binary: records its argv, then copies the match
+    file named after its first frame (``<basename>.txt`` in `matches_dir`)
+    to its -out path, and exits with `status`."""
+    argv_file = tmp_path / "dm_argv.txt"
+    script = tmp_path / "fake_dm.sh"
+    script.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {argv_file}\n'
+        # args: src1 src2 -nt 0 -out OUT -ngh_rad 100
+        f'cp {matches_dir}/$(basename "$1").txt "$6" 2>/dev/null || '
+        'printf "20 20 23 22\\n" > "$6"\n'
+        f"exit {status}\n")
+    script.chmod(script.stat().st_mode | stat.S_IXUSR)
+    return str(script), argv_file
+
+
+def _translation_matches(root, matches_dir, n_pairs=2):
+    """For each pair t of _make_tree's tree, the objects' grid points
+    moved by their known translations, one file per first frame."""
+    os.makedirs(matches_dir, exist_ok=True)
+    for t in range(n_pairs):
+        mk = load_mask(osp.join(root, "orgMasks", "seq0", f"{t:05d}.png"))
+        rows = []
+        for k, (_, _, (dx, dy)) in enumerate(OBJECTS):
+            ys, xs = np.nonzero(mk[::4, ::4] == k + 1)
+            rows += [f"{4 * x} {4 * y} {4 * x + dx} {4 * y + dy}"
+                     for y, x in zip(ys, xs)]
+        with open(osp.join(matches_dir, f"{t:05d}.png.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+
+
+@pytest.mark.parametrize("size", [None, (160, 120)])
+def test_binary_matcher_reads_the_matched_frames(tmp_path, size):
+    """The binary sees the preprocessed frames (saved by the port's codec)
+    when --size resizes them, else the originals; as the JAX prep_pair."""
+    inp = str(tmp_path / "in")
+    _make_tree(inp, n_frames=2)
+    dm, argv_file = _fake_dm(tmp_path, str(tmp_path / "none"))
+    kw = dict(input=inp, matcher="binary", dm_bin=dm, size=size)
+    for tag, mod in (("t", TP), ("j", JP)):
+        flags = mod.PipelineFlags(output=str(tmp_path / tag), **kw)
+        (p,) = mod.scan_pairs(flags)
+        bgpool = mod.BackgroundPool(None, np.random.default_rng(0))
+        assert mod.prep_pair(flags, p, bgpool) is not None
+        argv = argv_file.read_text().split()
+        argv_file.unlink()
+        src = (p.rgb1_gen, p.rgb2_gen) if size else (p.rgb1_org, p.rgb2_org)
+        assert argv == [*src, "-nt", "0", "-out", p.cstr_tmp, "-ngh_rad",
+                        "100"]
+        if size:
+            frame = load_mask(p.rgb2_gen)
+            assert frame.shape == (size[1], size[0])
+    if size:  # the saved preprocessed frame 2 is the JAX package's
+        with Image.open(tmp_path / "j" / "wRGB" / "seq0" / "00000.png") as im:
+            np.testing.assert_array_equal(
+                np.array(im), np.array(Image.open(
+                    tmp_path / "t" / "wRGB" / "seq0" / "00000.png")))
+
+
+def test_binary_matcher_pipeline_matches_jax(tmp_path):
+    """A batched run on the stand-in's translation matches: the flow of
+    each object is its translation, within 0.05 px of the JAX run's on
+    > 99% of its pixels; a matcher that exits non-zero fails its pairs and
+    the run goes on; a missing binary fails the run at once."""
+    inp = str(tmp_path / "in")
+    _make_tree(inp)
+    _translation_matches(inp, str(tmp_path / "m"))
+    dm, _ = _fake_dm(tmp_path, str(tmp_path / "m"))
+    kw = dict(input=inp, multseg=True, seed=0, mode="batched",
+              matcher="binary", dm_bin=dm)
+    short = dict(num_anneal=2, gn_iters=2, max_pcg_iters=40, pcg_iters=40.0)
+    tl = TP.main_pipeline(TP.PipelineFlags(output=str(tmp_path / "t"),
+                                           device="cpu", **kw),
+                          solver_cfg=TConfig(**short))
+    jl = JP.main_pipeline(JP.PipelineFlags(output=str(tmp_path / "j"), **kw),
+                          solver_cfg=JConfig(**short, backend="xla"))
+    assert len(tl) == len(jl) == 2
+    for t in range(2):
+        name = osp.join("Flow", "seq0", f"{t:05d}.flo")
+        tu, tv = JF.flow_read(tmp_path / "t" / name)
+        ju, jv = JF.flow_read(tmp_path / "j" / name)
+        mk = load_mask(osp.join(inp, "orgMasks", "seq0", f"{t:05d}.png"))
+        for k, (_, _, (dx, dy)) in enumerate(OBJECTS):
+            obj = mk == k + 1
+            assert abs(np.median(tu[obj]) - dx) < 0.1
+            assert abs(np.median(tv[obj]) - dy) < 0.1
+            # per pixel too, but where the other object's warp lands the
+            # composite takes its flow, and the rasterizers' coverage
+            # differs at a few pixels there
+            close = (np.abs(tu - ju) < 0.05) & (np.abs(tv - jv) < 0.05)
+            assert close[obj].mean() > 0.99
+    bad, _ = _fake_dm(tmp_path / "m", str(tmp_path / "m"), status=3)
+    lines = TP.main_pipeline(
+        TP.PipelineFlags(output=str(tmp_path / "bad"), device="cpu",
+                         **{**kw, "dm_bin": bad}), solver_cfg=TConfig(**short))
+    assert lines == []
+    with pytest.raises(FileNotFoundError):
+        TP.main_pipeline(TP.PipelineFlags(output=str(tmp_path / "x"),
+                                          device="cpu",
+                                          **{**kw, "dm_bin": "/nonexistent"}))

@@ -163,8 +163,15 @@ def test_deformer_solve_flow_and_options():
     assert np.abs(t - j).max() < FLOW_TOL
     with pytest.raises(ValueError):
         TA.ArapDeformer(keep_state=True, crop=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TA.ArapDeformer(raster="host", device="cpu")
+    with pytest.raises(ValueError):
+        TA.ArapDeformer(raster="nope", device="cpu")
+    host = TA.ArapDeformer(TConfig(**SHORT), raster="host", keep_state=True,
+                           device="cpu").deform(rgb, mask, cons)
+    jhost = JA.ArapDeformer(JConfig(**SHORT), raster="host",
+                            keep_state=True).deform(rgb, mask, cons)
+    assert np.abs(host.flow - jhost.flow).max() < FLOW_TOL
+    assert host.state is not None and host.state.shape == (3, 56, 72)
+    assert (host.warped_mask != jhost.warped_mask).mean() <= MASK_TOL
     r = TA.deform(rgb, mask, cons, TConfig(**SHORT), device="cpu")
     assert r.flow.shape == (56, 72, 2)
 
@@ -262,14 +269,27 @@ def test_warp_tool_cli_matches_jax(tmp_path):
     JW.main([str(tmp_path / p) for p in ("i.png", "m.png", "f.flo", "jw.png",
                                          "jm.png")] + ["--backend", "device"])
     TW.main([str(tmp_path / p) for p in ("i.png", "m.png", "f.flo", "tw.png",
-                                         "tm.png")] + ["--device", "cpu"])
+                                         "tm.png")]
+            + ["--backend", "device", "--device", "cpu"])
     for j, t in (("jw.png", "tw.png"), ("jm.png", "tm.png")):
         np.testing.assert_array_equal(load_rgb(tmp_path / t),
                                       load_rgb(tmp_path / j))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # the exact host splat (the JAX tool's default), bitwise
+    JW.main([str(tmp_path / p) for p in ("i.png", "m.png", "f.flo", "jh.png",
+                                         "jhm.png")] + ["--backend", "host"])
+    TW.main([str(tmp_path / p) for p in ("i.png", "m.png", "f.flo", "th.png",
+                                         "thm.png")] + ["--backend", "host"])
+    for j, t in (("jh.png", "th.png"), ("jhm.png", "thm.png")):
+        np.testing.assert_array_equal(load_rgb(tmp_path / t),
+                                      load_rgb(tmp_path / j))
+    with pytest.raises(ValueError):
         TW.warp_image(*(tmp_path / p for p in ("i.png", "m.png", "f.flo",
                                                "a.png", "b.png")),
-                      device="cpu", backend="host")
+                      device="cpu", backend="nope")
+    if not torch.cuda.is_available():  # the default is the card's rasterizer
+        with pytest.raises(SystemExit, match="CUDA is not available"):
+            TW.main([str(tmp_path / p) for p in ("i.png", "m.png", "f.flo",
+                                                 "a.png", "b.png")])
 
 
 def test_main_dispatch(capsys):
