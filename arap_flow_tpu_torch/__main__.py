@@ -2,7 +2,8 @@
 
 Commands: para_gen (dataset generation), generate (phase by phase),
 run_arap (batch deform over path lists), run_warp (batch warp), deform
-(arap_deform), warp (warp_image).
+(arap_deform), warp (warp_image), texture_gen (procedural textures),
+dmo_gen (textured-mask datasets).
 """
 
 import importlib
@@ -15,6 +16,8 @@ COMMANDS = {
     "run_warp": ("arap_flow_tpu_torch.pipeline.run_warp", "main"),
     "deform": ("arap_flow_tpu_torch.pipeline.deform_tool", "main"),
     "warp": ("arap_flow_tpu_torch.pipeline.warp_tool", "main"),
+    "texture_gen": ("arap_flow_tpu_torch.pipeline.texture_gen", "main"),
+    "dmo_gen": ("arap_flow_tpu_torch.pipeline.dmo_gen", "main"),
 }
 
 

@@ -13,11 +13,21 @@
 4. on the stride grid, forward-backward consistency and a score threshold,
    then two local-coherence passes on the host, select the matches.
 
-Every search, coarse and refine, goes through ``ops.zncc.zncc_search``: the
-CUDA kernel for CUDA tensors, its plain version for CPU tensors. Where the
-JAX package vmaps over directions and pairs, the batch dimension is written
-out: a pair stack of B frames runs as 2·B lanes (forward, backward for each
-pair), and the coarse level searches 2·B·K planes in one call.
+Every rigid search, coarse and refine, goes through
+``ops.zncc.zncc_search``: the CUDA kernel for CUDA tensors, its plain
+version for CPU tensors. Where the JAX package vmaps over directions and
+pairs, the batch dimension is written out: a pair stack of B frames runs as
+2·B lanes (forward, backward for each pair), and the coarse level searches
+2·B·K planes in one call.
+
+``subpatch=True`` replaces the coarse search by DeepMatching's
+split-and-rescore (``_search_subpatch``), in plain torch as the JAX package
+computes it outside its Pallas kernel. It materialises (side², H, W)
+offset stacks, so above the JAX package's element budget it falls back to
+the rigid search; the budget is divided by the hypotheses and the lanes
+(1 for ``pyramid_flow``, 2 for ``pyramid_flow_bidir`` and ``match_grid``,
+2·B for ``match_grid_multi``) as there, so both packages take the same
+search.
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import transfer
-from .zncc import zncc_search
+from .zncc import box_sum, zncc_search, zscore
 
 
 def to_gray(rgb: torch.Tensor) -> torch.Tensor:
@@ -101,9 +111,81 @@ def _hypotheses(rotations) -> tuple:
 
 
 def zncc_calls(levels: int, refine_passes: int = 1) -> int:
-    """zncc_search launches of one pyramid match (any number of lanes): the
-    coarse bank, then refine_passes at each finer level."""
+    """zncc_search launches of one pyramid match (any number of lanes) with
+    the rigid coarse search: the coarse bank, then refine_passes at each
+    finer level. A subpatch coarse search within its budget launches the
+    refine searches only."""
     return 1 + levels * refine_passes
+
+
+# elements of the offset stacks the JAX package materialises at once
+# (n_off·H·W) in its vectorised coarse search (matching.py:138)
+_SEARCH_VEC_BUDGET = 48 * 1024 * 1024
+
+
+def subpatch_fits(H: int, W: int, radius: int, budget_div: int = 1) -> bool:
+    """Whether the split-and-rescore search of an (H, W) plane at `radius`
+    stays within its budget: it holds several (side², H, W) stacks at once,
+    so a third of the vectorised search's budget, shared by `budget_div`
+    concurrent planes (hypotheses × lanes)."""
+    side = 2 * radius + 1
+    return side * side * H * W <= _SEARCH_VEC_BUDGET // (3 * max(1, budget_div))
+
+
+def subpatch_scores(g1: torch.Tensor, g2: torch.Tensor, radius: int,
+                    patch: int) -> torch.Tensor:
+    """The split-and-rescore scores of raw (H, W) planes at every offset,
+    (side², H, W) in raster order from (−r, −r) (DeepMatching's bottom-up
+    aggregation, one level):
+
+      child(o, p)  = ZNCC of the half-size (k/2) sub-patch at p, offset o
+      relax(o, p)  = max over |o' − o|∞ ≤ 1 of child(o', p)   (−inf beyond
+                     the offset window)
+      parent(o, p) = ¼ Σ_{δ ∈ {±k/4}²} relax(o, p + δ)        (zero beyond
+                     the plane)
+
+    Children are z-scored at their own k/2 scale."""
+    H, W = g1.shape
+    kc = max(2, patch // 2)
+    h = max(1, kc // 2)  # a child centre's offset from the parent centre
+    side = 2 * radius + 1
+    z = zscore(torch.stack([g1, g2]), kc)
+    z2p = F.pad(z[1], (radius, radius, radius, radius))
+    shifts = z2p.unfold(0, H, 1).unfold(1, W, 1)  # (side, side, H, W)
+    child = box_sum(z[0] * shifts, kc) / float(kc * kc)
+    cp = F.pad(child, (0, 0, 0, 0, 1, 1, 1, 1), value=-torch.inf)
+    relax = child
+    for oy in range(3):
+        for ox in range(3):
+            if oy != 1 or ox != 1:
+                relax = torch.maximum(relax,
+                                      cp[oy : oy + side, ox : ox + side])
+    rp = F.pad(relax, (h, h, h, h))
+    return 0.25 * (
+        rp[:, :, 0:H, 0:W]
+        + rp[:, :, 0:H, 2 * h : 2 * h + W]
+        + rp[:, :, 2 * h : 2 * h + H, 0:W]
+        + rp[:, :, 2 * h : 2 * h + H, 2 * h : 2 * h + W]
+    ).reshape(side * side, H, W)
+
+
+def _search_subpatch(g1: torch.Tensor, g2: torch.Tensor, radius: int,
+                     patch: int, budget_div: int = 1):
+    """DeepMatching-style split-and-rescore search of raw (H, W) planes
+    (``subpatch_scores``). Returns (du, dv, score) (H, W): per pixel the
+    first offset in raster order with the highest score. Where the offset
+    stacks exceed the budget (``subpatch_fits``), the rigid search
+    (``zncc_search``) instead."""
+    H, W = g1.shape
+    if not subpatch_fits(H, W, radius, budget_div):
+        return zncc_search(g1.contiguous(), g2.contiguous(), radius, patch)
+    parent = subpatch_scores(g1, g2, radius, patch)
+    best_idx = torch.argmax(parent, dim=0)  # the first maximum
+    best = torch.take_along_dim(parent, best_idx[None], dim=0)[0]
+    side = 2 * radius + 1
+    offs = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                        device=g1.device)
+    return offs[best_idx % side], offs[best_idx // side], best
 
 
 def _pyramid_flow(g1: torch.Tensor, g2: torch.Tensor, radius: int = 100,
@@ -112,10 +194,6 @@ def _pyramid_flow(g1: torch.Tensor, g2: torch.Tensor, radius: int = 100,
                   subpatch: bool = False):
     """Dense coarse-to-fine NCC flow from each lane of g1 (L, H, W) into the
     same lane of g2. Returns (flow (L, 2, H, W), score (L, H, W))."""
-    if subpatch:
-        raise NotImplementedError(
-            "subpatch=True (the split-and-rescore coarse search) is not yet "
-            "ported")
     L = g1.shape[0]
     dev = g1.device
     pyr1, pyr2 = [g1], [g2]
@@ -146,9 +224,18 @@ def _pyramid_flow(g1: torch.Tensor, g2: torch.Tensor, radius: int = 100,
             L, *a.shape)
 
     g2r = _bilinear(pyr2[-1], lanes(qx), lanes(qy))  # (L, K, Hc, Wc)
-    du, dv, sc = (t.reshape(L, K, Hc, Wc) for t in zncc_search(
-        pyr1[-1].contiguous(), g2r.reshape(L * K, Hc, Wc).contiguous(),
-        coarse_r, patch))
+    if subpatch and subpatch_fits(Hc, Wc, coarse_r, K * L):
+        # one plane at a time: the budget counts every lane's stacks, but
+        # the planes need not be live together
+        found = [_search_subpatch(pyr1[-1][i], g2r[i, k], coarse_r, patch,
+                                  K * L)
+                 for i in range(L) for k in range(K)]
+        du, dv, sc = (torch.stack([f[j] for f in found]).reshape(L, K, Hc, Wc)
+                      for j in range(3))
+    else:
+        du, dv, sc = (t.reshape(L, K, Hc, Wc) for t in zncc_search(
+            pyr1[-1].contiguous(), g2r.reshape(L * K, Hc, Wc).contiguous(),
+            coarse_r, patch))
 
     def m(i, j):
         return torch.as_tensor(Ms[:, i, j], dtype=torch.float32,
@@ -196,6 +283,19 @@ def pyramid_flow(g1: torch.Tensor, g2: torch.Tensor, radius: int = 100,
                               refine_radius, rotations, refine_passes,
                               subpatch)
     return uv[0], score[0]
+
+
+def pyramid_flow_bidir(g1: torch.Tensor, g2: torch.Tensor, radius: int = 100,
+                       patch: int = 12, levels: int = 3, refine_radius: int = 2,
+                       rotations: tuple = (0.0,), refine_passes: int = 1,
+                       subpatch: bool = False):
+    """Forward (g1 -> g2) and backward (g2 -> g1) flow as two lanes of one
+    pyramid. Returns (flows (2, 2, H, W), scores (2, H, W)). `rotations`
+    must be a symmetric set (the backward direction sees the inverse
+    rotation)."""
+    return _pyramid_flow(torch.stack([g1, g2]), torch.stack([g2, g1]), radius,
+                         patch, levels, refine_radius, rotations,
+                         refine_passes, subpatch)
 
 
 # default rotation-hypothesis set: ±15°/±30° coarse seeds, symmetric
@@ -275,6 +375,18 @@ def match_grid(rgb1: torch.Tensor, rgb2: torch.Tensor, stride: int = 4,
                            levels, refine_radius, rotations, refine_passes,
                            downscale, subpatch)
     return tuple(t[0] for t in out)
+
+
+def match_fields(rgb1: torch.Tensor, rgb2: torch.Tensor, radius: int = 100,
+                 patch: int = 12, levels: int = 3, refine_radius: int = 2,
+                 rotations: tuple = DEFAULT_ROTATIONS, refine_passes: int = 1,
+                 subpatch: bool = False):
+    """Gray conversion and the bidirectional pyramid flow of one (3, H, W)
+    float32 RGB pair: (flows (2, 2, H, W), scores (2, H, W))."""
+    return pyramid_flow_bidir(to_gray(rgb1), to_gray(rgb2), radius=radius,
+                              patch=patch, levels=levels,
+                              refine_radius=refine_radius, rotations=rotations,
+                              refine_passes=refine_passes, subpatch=subpatch)
 
 
 def _coherence_keep(keep_grid, u_grid, v_grid, tol=4.0, rel=0.2, rad=3,
@@ -375,6 +487,24 @@ def _select_from_grids(u, v, sc, fb_err, H, W, stride, fb_threshold,
         [xs[keep], ys[keep], np.round(x2[keep]), np.round(y2[keep]), sc[keep]],
         axis=1,
     ).astype(np.float32)
+
+
+def _select_matches(fwd, bwd, score, H, W, stride, fb_threshold,
+                    score_threshold, radius, coherence: bool = True):
+    """Host selection from dense numpy fields: fwd, bwd (2, H, W), score
+    (H, W). The stride grid's forward-backward error, then
+    _select_from_grids."""
+    s2 = stride // 2
+    u = fwd[0, s2::stride, s2::stride]
+    v = fwd[1, s2::stride, s2::stride]
+    sc = score[s2::stride, s2::stride]
+    xs = np.arange(s2, W, stride, dtype=np.float64)[None, :]
+    ys = np.arange(s2, H, stride, dtype=np.float64)[:, None]
+    xt = np.clip(np.round(xs + u).astype(int), 0, W - 1)
+    yt = np.clip(np.round(ys + v).astype(int), 0, H - 1)
+    fb_err = np.hypot(u + bwd[0][yt, xt], v + bwd[1][yt, xt])
+    return _select_from_grids(u, v, sc, fb_err, H, W, stride, fb_threshold,
+                              score_threshold, radius, coherence)
 
 
 def clamp_match_params(
@@ -513,3 +643,30 @@ def write_matches(path, matches: np.ndarray) -> None:
                 f"{int(row[0])} {int(row[1])} {int(row[2])} {int(row[3])} "
                 f"{row[4]:.4f}\n"
             )
+
+
+def match_images_batched(
+    pairs: list,
+    radius: int = 100,
+    stride: int = 4,
+    patch: int = 12,
+    levels: int = 3,
+    fb_threshold: float = 1.5,
+    score_threshold: float = 0.3,
+    rotations: tuple = None,
+    refine_passes: int = 1,
+    subpatch: bool = False,
+    *,
+    device,
+) -> list:
+    """match_images over a list of (rgb1, rgb2) pairs, one pair at a time;
+    returns one (N_i, 5) match array per pair. The multi-pair matcher of
+    the pipeline is match_images_dispatch_multi."""
+    return [
+        match_images(r1, r2, radius=radius, stride=stride, patch=patch,
+                     levels=levels, fb_threshold=fb_threshold,
+                     score_threshold=score_threshold, rotations=rotations,
+                     refine_passes=refine_passes, subpatch=subpatch,
+                     device=device)
+        for r1, r2 in pairs
+    ]

@@ -8,10 +8,14 @@ Pallas kernel.
    draw priority is row-major source order) and, for the second seed, by
    min (the bottom fold). ``scatter_reduce_`` with amax / amin does not
    depend on the order of the writes, so it is deterministic.
-2. Dilation: three 3×3 fill-only max (min) pools fill empty cells.
+2. Dilation: `dilate` (default 3) 3×3 fill-only max (min) pools fill
+   empty cells.
 3. For every output pixel, the quads in a rectangle around each seed run
    the reference's LK edge-function coverage test; the accepted triangle
-   with the highest draw priority wins.
+   with the highest draw priority wins. The rectangles are the calibrated
+   dual-seed pair unless `window` asks for one square of that side around
+   the max seed alone (`anchor` places it; `min_rect` adds a min-seed
+   rectangle to it).
 4. The winner's corner colours are interpolated barycentrically and
    truncated to whole uint8 values.
 """
@@ -93,21 +97,44 @@ def _seed_map(warp: torch.Tensor, drawable: torch.Tensor, dilate: int,
     return seeds
 
 
-_DILATE = 3
-
 # dual-seed candidate rects (y0, y1, x0, x1), inclusive offsets around the
 # max seed and the min seed: the JAX package's calibrated defaults
 _MAX_RECT = (-2, 0, -2, 1)
 _MIN_RECT = (-1, 1, -1, 0)
 
 
-def rasterize(warp: torch.Tensor, rgb: torch.Tensor,
-              arap_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _rects(window, anchor, min_rect):
+    """(max-seed rect, min-seed rect or None) of the candidate options, by
+    the JAX package's rules: the calibrated pair without `window`; with
+    `window`, a window × window square at offsets −anchor .. window − 1 −
+    anchor (anchor default min(2, window − 1)) and no min seed unless
+    `min_rect` names one."""
+    if window is None:
+        if anchor is not None:
+            raise ValueError(
+                "anchor only places an explicit `window` rect; without "
+                "`window` the calibrated dual-seed rects are used and anchor "
+                "would be ignored")
+        return _MAX_RECT, (_MIN_RECT if min_rect == "default" else min_rect)
+    if anchor is None:
+        anchor = min(2, window - 1)
+    lo, hi = -anchor, window - 1 - anchor
+    return (lo, hi, lo, hi), (None if min_rect == "default" else min_rect)
+
+
+def rasterize(warp: torch.Tensor, rgb: torch.Tensor, arap_mask: torch.Tensor,
+              window: int | None = None, dilate: int = 3,
+              anchor: int | None = None, min_rect: tuple | None = "default",
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward-rasterize the warped grid of one problem.
 
     warp (2, H, W) absolute warped positions; rgb (3, H, W) float colours;
-    arap_mask (H, W), 0 = object. Returns (warped rgb (3, H, W) float holding
-    whole uint8 values, warped mask (H, W) float ∈ {0, 255})."""
+    arap_mask (H, W), 0 = object. The candidate quads: see ``_rects``;
+    `min_rect` (y0, y1, x0, x1) inclusive offsets around the min seed, None
+    for no second seed, "default" for the calibrated rect where `window` is
+    not given. Returns (warped rgb (3, H, W) float holding whole uint8
+    values, warped mask (H, W) float ∈ {0, 255})."""
+    max_rect, min_rect = _rects(window, anchor, min_rect)
     H, W = arap_mask.shape
     dev = warp.device
     m = arap_mask == 0
@@ -169,8 +196,10 @@ def rasterize(warp: torch.Tensor, rgb: torch.Tensor,
                     covered = covered | ok
             row0 = row1
 
-    run_rect(_seed_map(warp, m4, _DILATE, "max"), -1, _MAX_RECT)
-    run_rect(_seed_map(warp, m4, _DILATE, "min"), _MIN_EMPTY, _MIN_RECT)
+    run_rect(_seed_map(warp, m4, dilate, "max"), -1, max_rect)
+    if min_rect is not None:
+        run_rect(_seed_map(warp, m4, dilate, "min"), _MIN_EMPTY,
+                 tuple(min_rect))
 
     rflat = rgb.reshape(rgb.shape[0], -1)
     col = (rflat[:, best_c[0]] * best_w[0] + rflat[:, best_c[1]] * best_w[1]
@@ -182,6 +211,9 @@ def rasterize(warp: torch.Tensor, rgb: torch.Tensor,
 
 
 def rasterize_flow(flow: torch.Tensor, rgb: torch.Tensor,
-                   arap_mask: torch.Tensor):
+                   arap_mask: torch.Tensor, window: int | None = None,
+                   dilate: int = 3, anchor: int | None = None,
+                   min_rect: tuple | None = "default"):
     """Rasterize from a flow field (2, H, W): warp = flow + grid."""
-    return rasterize(make_warp(flow), rgb, arap_mask)
+    return rasterize(make_warp(flow), rgb, arap_mask, window=window,
+                     dilate=dilate, anchor=anchor, min_rect=min_rect)

@@ -90,6 +90,28 @@ Phases, each reported on its own line; any failure exits non-zero:
        prepared translation matches: the list file, the flow gate, no
        ZNCC launch.
 
+8. the DMO dataset path:
+   8a. ``ops.textures``: each of the 7 families rendered at 1280x720 from
+       fixed drawn values on the card and on the CPU: fields within 1e-4,
+       uint8 images equal on >= 99.9% of values and elsewhere within 1; ms
+       a texture on the card.
+   8b. ``dmo_gen.run`` on phase 5's two ellipses (masks only, 5 frames at
+       854x480) at fd 1 and 2 with two texture sets, batched and multseg
+       at 19x8x400, cold and warm into fresh trees: the set-0 and set-1
+       Flow and wMasks byte-identical, their inpRGB and wRGB different
+       (mean |d| > 2), each object's median |flow - fd*t| < 1 px, the
+       launches of zncc_search and pcg_fixed as predicted (> 0 each), no
+       failed write; seconds a solved pair and the textured frames'
+       seconds.
+   8c. ``matching._search_subpatch`` at the 854x480 frame's coarse shape
+       (60x106, r = 13) on the card against the CPU: scores within 2e-4,
+       offsets equal on >= 99% of pixels and elsewhere only on ties within
+       2e-4, no zncc_search launch; then ``match_images(subpatch=True,
+       rotations=(0.0,))`` on an 854x480 pair translated by (6, -3):
+       > 100 matches, median within 0.5 px, > 80% within 1 px
+       (tests/test_matching.py's gate), zncc_search launched once a refine
+       level.
+
 The last line is the JSON device record; the line before it lists the
 kernels with their launch counts, errors, times and bounds.
 """
@@ -929,6 +951,13 @@ def rgb_texture(H: int, W: int, seed: int) -> np.ndarray:
     return np.clip(base + detail, 0, 255).astype(np.uint8)
 
 
+def pipe_object(k: int, t: int, yy, xx):
+    """Object k's ellipse in frame t."""
+    (cy, cx), (ry, rx), (dx, dy) = PIPE_OBJECTS[k]
+    return (((yy - cy - dy * t) / ry) ** 2
+            + ((xx - cx - dx * t) / rx) ** 2) < 1.0
+
+
 def make_pipeline_tree(root: str, n_frames: int = PIPE_FRAMES) -> None:
     from arap_flow_tpu_torch.io.image import save_image
 
@@ -941,9 +970,8 @@ def make_pipeline_tree(root: str, n_frames: int = PIPE_FRAMES) -> None:
     for t in range(n_frames):
         img = bg.copy()
         mask = np.zeros((H, W), np.uint8)
-        for k, ((cy, cx), (ry, rx), (dx, dy)) in enumerate(PIPE_OBJECTS):
-            ob = (((yy - cy - dy * t) / ry) ** 2
-                  + ((xx - cx - dx * t) / rx) ** 2) < 1.0
+        for k, (_, _, (dx, dy)) in enumerate(PIPE_OBJECTS):
+            ob = pipe_object(k, t, yy, xx)
             img[ob] = texs[k][yy[ob] - dy * t, xx[ob] - dx * t]
             mask[ob] = k + 1
         save_image(os.path.join(root, "orgRGB", "seq0", f"{t:05d}.png"), img)
@@ -1683,6 +1711,235 @@ def phase_binary_matcher(smi: str) -> None:
             raise AssertionError(line)
 
 
+# Phase 8: the DMO dataset path. 8a renders every texture family at the
+# reference renderer's 1280x720; 8b runs dmo_gen on phase 5's objects
+# (masks only) at two frame distances and two texture sets; 8c holds the
+# subpatch search to itself on the CPU at the 854x480 frame's coarse shape
+# (60x106, r = 13) and matches a translated 854x480 pair with it.
+TEX_H, TEX_W = 720, 1280
+DMO_FDS = (1, 2)
+SUBPATCH_SHAPE = (60, 106, 13)
+SUBPATCH_SHIFT = (6, -3)  # (dx, dy) of the translated pair
+
+
+def phase_textures(smi: str) -> None:
+    """8a: each family's field and image on the card against the CPU from
+    the same drawn values."""
+    import torch
+
+    from arap_flow_tpu_torch.ops import textures
+
+    dev = torch.device("cuda", 0)
+    for i, fam in enumerate(textures.FAMILIES):
+        p = textures.draw_render_params(fam, TEX_H, TEX_W,
+                                        torch.Generator().manual_seed(80 + i))
+        f_err = float((textures.field(fam, p["field"], TEX_H, TEX_W, dev).cpu()
+                       - textures.field(fam, p["field"], TEX_H, TEX_W, "cpu")
+                       ).abs().max())
+        card = textures.render_params(fam, p, TEX_H, TEX_W, dev).cpu().numpy()
+        d = np.abs(card.astype(np.int16) - textures.render_params(
+            fam, p, TEX_H, TEX_W, "cpu").numpy())
+        ms = cuda_ms(lambda: textures.render_params(fam, p, TEX_H, TEX_W, dev))
+        line = (f"phase 8a {fam}: field max |card - cpu| {f_err:.3g}; image "
+                f"{100 * (d != 0).mean():.4f}% of values differ, max "
+                f"{int(d.max())}; {ms:.3f} ms a {TEX_W}x{TEX_H} texture on "
+                f"the card ({smi})")
+        say(line)
+        if not (f_err <= 1e-4 and (d != 0).mean() <= 1e-3 and d.max() <= 1):
+            raise AssertionError(line)
+
+
+def make_mask_tree(root: str) -> None:
+    """Phase 5's annotation masks alone: two ellipses (ids 1 and 2)."""
+    from arap_flow_tpu_torch.io.image import save_image
+
+    os.makedirs(os.path.join(root, "orgMasks", "seq0"))
+    yy, xx = np.mgrid[0:FRAME_H, 0:FRAME_W]
+    for t in range(PIPE_FRAMES):
+        mask = np.zeros((FRAME_H, FRAME_W), np.uint8)
+        for k in range(len(PIPE_OBJECTS)):
+            mask[pipe_object(k, t, yy, xx)] = k + 1
+        save_image(os.path.join(root, "orgMasks", "seq0", f"{t:05d}.png"),
+                   mask)
+
+
+def run_dmo(masks: str, out: str, cfg) -> tuple[float, float]:
+    """dmo_gen at DMO_FDS with two texture sets on the card; returns (the
+    run's seconds, the seconds of its textured frames: renders, copies and
+    JPEG encodes)."""
+    import torch
+
+    from arap_flow_tpu_torch.pipeline import dmo_gen
+
+    spent = [0.0]
+    texture_sequence = dmo_gen.texture_sequence
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        texture_sequence(*args, **kwargs)
+        spent[0] += time.perf_counter() - t0
+
+    dmo_gen.texture_sequence = timed
+    try:
+        t0 = time.perf_counter()
+        dmo_gen.run(masks, out, fds=list(DMO_FDS), multseg=True,
+                    mode="batched", texture_sets=2, solver_cfg=cfg,
+                    device="cuda")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, spent[0]
+    finally:
+        dmo_gen.texture_sequence = texture_sequence
+
+
+def _read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def check_dmo(masks: str, out: str, cfg, launches: dict) -> None:
+    """The dual-set products, the flow against each object's motion and
+    the kernels' launches against the prediction."""
+    from arap_flow_tpu_torch.io.flo import flow_read
+    from arap_flow_tpu_torch.io.image import load_mask, load_rgb
+    from arap_flow_tpu_torch.ops.energy import ArapWeights
+
+    z_exp = p_exp = 0
+    mk = [load_mask(os.path.join(masks, "orgMasks", "seq0", f"{t:05d}.png"))
+          for t in range(PIPE_FRAMES)]
+    for fd in DMO_FDS:
+        n_pairs = PIPE_FRAMES - fd
+        s0, s1 = (os.path.join(out, s, f"fd{fd}") for s in ("set0", "set1"))
+        with open(os.path.join(s0, "all_files.list")) as f:
+            if len(f.read().splitlines()) != n_pairs:
+                raise AssertionError(f"fd {fd}: not {n_pairs} pairs listed")
+        for t in range(n_pairs):
+            name = f"{t:05d}"
+            for d, ext in (("Flow", "flo"), ("wMasks", "png")):
+                a, b = (_read_bytes(os.path.join(s, d, "seq0", f"{name}.{ext}"))
+                        for s in (s0, s1))
+                if a != b:
+                    raise AssertionError(f"fd {fd} {d} {name}: the sets differ")
+            for d in ("inpRGB", "wRGB"):
+                a, b = (load_rgb(os.path.join(s, d, "seq0", name + ".png"))
+                        .astype(np.int16) for s in (s0, s1))
+                if not np.abs(a - b).mean() > 2.0:
+                    raise AssertionError(f"fd {fd} {d} {name}: the sets' "
+                                         "textures do not differ")
+            u, v = flow_read(os.path.join(s0, "Flow", "seq0", name + ".flo"))
+            for k, (_, _, (dx, dy)) in enumerate(PIPE_OBJECTS):
+                obj = mk[t] == k + 1
+                err = float(np.median(np.hypot(u[obj] - fd * dx,
+                                               v[obj] - fd * dy)))
+                say(f"phase 8b fd {fd} pair {t} object {k + 1}: median |flow "
+                    f"- ({fd * dx}, {fd * dy})| {err:.4f} px")
+                if not err < 1.0:
+                    raise AssertionError(f"fd {fd} pair {t} object {k + 1}: "
+                                         f"median flow error {err} >= 1 px")
+        z, p, _, _ = predicted_launches(
+            os.path.join(out, "set0", "textured"), s0, cfg, ArapWeights(),
+            masks=mk[:n_pairs])
+        z_exp += z
+        p_exp += p
+    line = (f"phase 8b launches: zncc_search {launches['zncc_search']} "
+            f"(predicted {z_exp}), pcg_fixed {launches['pcg_fixed']} "
+            f"(predicted {p_exp})")
+    say(line)
+    if (launches["zncc_search"], launches["pcg_fixed"]) != (z_exp, p_exp) or (
+            min(z_exp, p_exp) <= 0):
+        raise AssertionError(line)
+
+
+def phase_dmo(smi: str) -> dict:
+    """8b: dmo_gen on the card, cold and warm; returns the cold run's
+    launches."""
+    from arap_flow_tpu_torch.ops.solver import SolverConfig
+    from arap_flow_tpu_torch.pipeline import para_gen
+
+    cfg = SolverConfig()
+    n_pairs = sum(PIPE_FRAMES - fd for fd in DMO_FDS)
+    with tempfile.TemporaryDirectory() as tmp:
+        masks = os.path.join(tmp, "masks")
+        make_mask_tree(masks)
+        secs = {}
+        for run in ("cold", "warm"):
+            zero_counts()
+            out = os.path.join(tmp, run)
+            secs[run] = run_dmo(masks, out, cfg)
+            launches = read_counts()
+            if para_gen.WRITE_ERRORS:
+                raise AssertionError(f"phase 8b {run}: "
+                                     f"{para_gen.WRITE_ERRORS} failed writes")
+            check_dmo(masks, out, cfg, launches)
+            if run == "cold":
+                cold_launches = launches
+        say(f"phase 8b dmo_gen (fd {list(DMO_FDS)}, 2 texture sets, batched, "
+            f"multseg, {FRAME_W}x{FRAME_H}, {n_pairs} solved pairs): cold "
+            f"{secs['cold'][0]:.3f} s ({secs['cold'][0] / n_pairs:.3f} a "
+            f"pair), warm {secs['warm'][0]:.3f} s ({secs['warm'][0] / n_pairs:.3f}"
+            f" a pair); textured frames {secs['cold'][1]:.3f} / "
+            f"{secs['warm'][1]:.3f} s of them ({smi})")
+    return cold_launches
+
+
+def phase_subpatch(smi: str) -> None:
+    """8c: the split-and-rescore search on the card against the CPU, then
+    match_images(subpatch=True) on a translated 854x480 pair."""
+    import torch
+
+    from arap_flow_tpu_torch.ops import matching
+
+    H, W, r = SUBPATCH_SHAPE
+    side = 2 * r + 1
+    if not matching.subpatch_fits(H, W, r, 2):
+        raise AssertionError("the coarse shape falls back to the rigid search")
+    p1, p2 = (torch.tensor(a[0]) for a in zncc_inputs(1, 1, H, W, r, 90))
+    dev = torch.device("cuda", 0)
+    g1, g2 = p1.to(dev), p2.to(dev)
+    zero_counts()
+    ku, kv, ks = (a.cpu() for a in matching._search_subpatch(g1, g2, r, 12, 2))
+    pu, pv, ps = matching._search_subpatch(p1, p2, r, 12, 2)
+    err = float((ks - ps).abs().max())
+    diff = (ku != pu) | (kv != pv)
+    idx = ((kv + r) * side + (ku + r)).to(torch.int64)
+    at_card = torch.take_along_dim(matching.subpatch_scores(p1, p2, r, 12),
+                                   idx[None], dim=0)[0]
+    tie_gap = float((ps - at_card)[diff].max()) if diff.any() else 0.0
+    ms = cuda_ms(lambda: matching._search_subpatch(g1, g2, r, 12, 2))
+    t0 = time.perf_counter()
+    matching._search_subpatch(p1, p2, r, 12, 2)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    line = (f"phase 8c subpatch search {H}x{W} r={r}: scores max |card - "
+            f"cpu| {err:.3g}; offsets differ on {100 * diff.float().mean():.3f}"
+            f"% of pixels, all ties within {tie_gap:.3g}; {ms:.3f} ms on the "
+            f"card, {cpu_ms:.1f} ms on the host CPU; zncc_search launches "
+            f"{read_counts()['zncc_search']} ({smi})")
+    say(line)
+    if not (err < 2e-4 and diff.float().mean() <= 0.01 and tie_gap <= 2e-4
+            and read_counts()["zncc_search"] == 0):
+        raise AssertionError(line)
+
+    dx, dy = SUBPATCH_SHIFT
+    im1 = rgb_texture(FRAME_H, FRAME_W, 91)
+    im2 = np.roll(np.roll(im1, dy, axis=0), dx, axis=1)
+    zero_counts()
+    t0 = time.perf_counter()
+    m = matching.match_images(im1, im2, subpatch=True, rotations=(0.0,),
+                              device=dev)
+    secs = time.perf_counter() - t0
+    n = read_counts()["zncc_search"]
+    _, levels = matching.clamp_match_params(FRAME_H, FRAME_W)
+    u, v = m[:, 2] - m[:, 0], m[:, 3] - m[:, 1]
+    good = float(((np.abs(u - dx) <= 1) & (np.abs(v - dy) <= 1)).mean())
+    line = (f"phase 8c match_images(subpatch=True) {FRAME_W}x{FRAME_H} "
+            f"shifted ({dx}, {dy}): {len(m)} matches, median ({np.median(u)}, "
+            f"{np.median(v)}), {100 * good:.1f}% within 1 px, {secs:.3f} s; "
+            f"zncc_search launches {n} (the refine levels: {levels})")
+    say(line)
+    if not (len(m) > 100 and abs(np.median(u) - dx) <= 0.5
+            and abs(np.median(v) - dy) <= 0.5 and good > 0.8 and n == levels):
+        raise AssertionError(line)
+
+
 def main() -> int:
     import torch
 
@@ -1724,6 +1981,13 @@ def main() -> int:
     phase_native(smi, probs, native_s, pair_flows)
     phase_jpeg_pipeline(smi)
     phase_binary_matcher(smi)
+    t0 = time.perf_counter()
+    phase_textures(smi)
+    dmo_launches = phase_dmo(smi)
+    if dmo_launches["zncc_search"] <= 0 or dmo_launches["pcg_fixed"] <= 0:
+        raise AssertionError(f"dmo_gen missed a kernel: {dmo_launches}")
+    phase_subpatch(smi)
+    say(f"phase 8 seconds: {time.perf_counter() - t0:.3f}")
     p_bound, p_by = pcg_bound(*PIPE_PCG_SHAPE)
     f_bound, f_by = fused_bound(*PIPE_PCG_SHAPE, *FUSED_UNIT)
     pcg_row = {"route": "cuda", "source": "arap_flow_tpu_torch/csrc/pcg.cu",

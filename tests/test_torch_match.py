@@ -14,6 +14,7 @@ points have identical integer targets. The host selection copies are held
 bit-equal.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -344,11 +345,141 @@ def test_constants_and_write_matches_equal(tmp_path):
     assert (tmp_path / "t.txt").read_bytes() == (tmp_path / "j.txt").read_bytes()
 
 
-def test_subpatch_is_not_yet_ported():
-    im = _texture(96, 112, 13)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TM.match_images(im, im, radius=16, levels=1, subpatch=True,
-                        device="cpu")
+def _raw_pair(H, W, r, dy, dx, seed):
+    a = _mk((H + 2 * r + 8, W + 2 * r + 8), seed) * 40 + 120
+    p1 = a[r + 4 : r + 4 + H, r + 4 : r + 4 + W]
+    p2 = a[r + 4 + dy : r + 4 + dy + H, r + 4 + dx : r + 4 + dx + W]
+    return np.ascontiguousarray(p1), np.ascontiguousarray(p2)
+
+
+def _jax_subpatch(p1, p2, r, budget_div):
+    """JAX's _search_subpatch under jit (eagerly it dispatches op by op)."""
+    fn = jax.jit(lambda a, b: JM._search_subpatch(a, b, r, 12, budget_div))
+    return [np.asarray(a) for a in fn(jnp.asarray(p1), jnp.asarray(p2))]
+
+
+def _assert_search_close(t, j):
+    """Scores within 2e-4; (du, dv) equal but on ties (where the two
+    packages' best scores agree within 2e-4 and the offsets differ)."""
+    (tu, tv, ts), (ju, jv, js) = t, j
+    assert np.abs(ts - js).max() < 2e-4
+    same = (tu == ju) & (tv == jv)
+    assert same.mean() >= 0.99, same.mean()
+
+
+@pytest.fixture
+def small_budget(monkeypatch):
+    """Both packages' vectorised-search budget cut to 2^18 elements, so
+    that small planes reach either side of the subpatch budget."""
+    for mod in (JM, TM):
+        monkeypatch.setattr(mod, "_SEARCH_VEC_BUDGET", 1 << 18)
+
+
+@pytest.mark.parametrize("shape, budget_div, fits", [
+    ((30, 40, 6), 1, False),   # 169·1200 = 202,800 > 2^18 // 3 = 87,381
+    ((16, 20, 4), 1, True),    # 81·320 = 25,920
+    ((16, 20, 4), 4, False),   # > 87,381 // 4 = 21,845
+    ((12, 16, 3), 4, True),    # 49·192 = 9,408
+    ((12, 16, 3), 10, False),  # > 2,912
+])
+def test_subpatch_takes_jax_search(shape, budget_div, fits, small_budget,
+                                   monkeypatch):
+    """The same decision as JAX on each side of the budget (the JAX
+    fallback calls its rigid _search, the port's zncc_search), and the same
+    result: scores within 2e-4, (du, dv) equal but on ties."""
+    H, W, r = shape
+    assert TM.subpatch_fits(H, W, r, budget_div) == fits
+    rigid = {"jax": 0, "port": 0}
+    for name, mod, fn in (("jax", JM, "_search"), ("port", TM, "zncc_search")):
+        real = getattr(mod, fn)
+
+        def spy(*a, _real=real, _n=name, **k):
+            rigid[_n] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(mod, fn, spy)
+    p1, p2 = _raw_pair(H, W, r, 2, -1, H + r)
+    j = _jax_subpatch(p1, p2, r, budget_div)
+    t = [a.numpy() for a in TM._search_subpatch(
+        torch.tensor(p1), torch.tensor(p2), r, 12, budget_div)]
+    assert rigid == {"jax": int(not fits), "port": int(not fits)}
+    _assert_search_close(t, j)
+
+
+def test_subpatch_budget_is_jax_coarse_rule():
+    """At 854×480, levels 3, radius 100 (coarse 60×106, r = 13): the
+    default bank on one pair falls back, rotations=(0.0,) does not."""
+    assert TM._SEARCH_VEC_BUDGET == JM._SEARCH_VEC_BUDGET
+    assert not TM.subpatch_fits(60, 106, 13, len(TM.DEFAULT_ROTATIONS) * 2)
+    assert TM.subpatch_fits(60, 106, 13, 1 * 2)
+
+
+def test_subpatch_search_at_the_coarse_shape_matches_jax():
+    """The 854×480 frame's coarse level: 60×106 at r = 13, in budget."""
+    p1, p2 = _raw_pair(60, 106, 13, 3, -5, 31)
+    j = _jax_subpatch(p1, p2, 13, 2)
+    t = [a.numpy() for a in TM._search_subpatch(
+        torch.tensor(p1), torch.tensor(p2), 13, 12, 2)]
+    _assert_search_close(t, j)
+
+
+@pytest.mark.parametrize("rotations", [(0.0,), JM.DEFAULT_ROTATIONS])
+def test_match_images_subpatch_matches_jax(rotations):
+    """subpatch=True through match_images (tests/test_matching.py's
+    translation gate): the coarse split-and-rescore search, then the rigid
+    refine levels; the same matches as JAX."""
+    im1 = _texture(96, 112, 21)
+    im2 = _shifted(im1, 6, -4)
+    kw = dict(radius=16, levels=1, subpatch=True, rotations=rotations)
+    j = JM.match_images(im1, im2, **kw)
+    t = TM.match_images(im1, im2, device="cpu", **kw)
+    assert len(t) > 50
+    _compare_matches(j, t)
+    d = t[:, 2:4] - t[:, 0:2]
+    assert np.median(d[:, 0]) == 6 and np.median(d[:, 1]) == -4
+
+
+def test_pyramid_flow_bidir_and_match_fields_match_jax():
+    im1 = _texture(80, 96, 22)
+    im2 = _shifted(im1, -3, 5)
+    g1, g2 = (im.astype(np.float32)[..., 0] for im in (im1, im2))
+    kw = dict(radius=12, levels=1)
+    jf, js = (np.asarray(a) for a in JM.pyramid_flow_bidir(
+        jnp.asarray(g1), jnp.asarray(g2), **kw))
+    tf, ts = TM.pyramid_flow_bidir(torch.tensor(g1), torch.tensor(g2), **kw)
+    assert tf.shape == (2, 2, 80, 96) and ts.shape == (2, 80, 96)
+    same = (tf.numpy() == jf).all(axis=1)
+    assert same.mean() > 0.97
+    assert np.abs(ts.numpy() - js)[same].max() < 2e-4
+    # match_fields: gray conversion, then the same two lanes
+    r1, r2 = (np.ascontiguousarray(im.transpose(2, 0, 1)).astype(np.float32)
+              for im in (im1, im2))
+    mf, ms = TM.match_fields(torch.tensor(r1), torch.tensor(r2), **kw)
+    jmf, jms = (np.asarray(a) for a in JM.match_fields(
+        jnp.asarray(r1), jnp.asarray(r2), **kw))
+    same = (mf.numpy() == jmf).all(axis=1)
+    assert same.mean() > 0.97
+    assert np.abs(ms.numpy() - jms)[same].max() < 2e-4
+    # the dense host selection
+    args = (80, 96, 4, 1.5, 0.3, 12)
+    tsel = TM._select_matches(mf[0].numpy(), mf[1].numpy(), ms[0].numpy(),
+                              *args)
+    np.testing.assert_array_equal(
+        tsel, JM._select_matches(mf[0].numpy(), mf[1].numpy(),
+                                 ms[0].numpy(), *args))
+    _compare_matches(JM._select_matches(jmf[0], jmf[1], jms[0], *args), tsel)
+    assert np.median(tsel[:, 2] - tsel[:, 0]) == -3
+    assert np.median(tsel[:, 3] - tsel[:, 1]) == 5
+
+
+def test_match_images_batched_is_per_pair():
+    pairs = [(im, _shifted(im, 2, -1)) for im in
+             (_texture(48, 64, 23), _texture(48, 64, 24))]
+    got = TM.match_images_batched(pairs, radius=12, levels=1, device="cpu")
+    assert len(got) == 2
+    for (a, b), m in zip(pairs, got):
+        np.testing.assert_array_equal(
+            m, TM.match_images(a, b, radius=12, levels=1, device="cpu"))
 
 
 def test_zncc_calls_counts_the_searches(monkeypatch):
