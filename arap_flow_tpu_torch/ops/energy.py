@@ -321,3 +321,58 @@ def apply_jtj(p: torch.Tensor, ops: ArapOperands, s: torch.Tensor,
     return torch.cat(
         [out_o + wr2.unsqueeze(-3) * acc_o, (wr2 * acc_a).unsqueeze(-3)], dim=-3
     )
+
+
+def sparse_jacobian(x: torch.Tensor, ops: ArapOperands, cimg: torch.Tensor):
+    """The residuals' Jacobian as numpy COO (rows, cols, vals): the dumpJ
+    export, computed on the host.
+
+    Rows index the 10 residual planes of ``residuals`` (4 directions × 2
+    components, then the 2 fit components), row = plane·H·W + y·W + x;
+    columns index the unknowns, col = channel·H·W + y·W + x with channels
+    (offset_x, offset_y, angle). Entries that are structurally zero (masked
+    residuals) are dropped. A batch of B problems gives the block-diagonal
+    Jacobian: problem k's rows are offset by k·10·H·W and its columns by
+    k·3·H·W. `cimg` does not enter the Jacobian; it is taken for the
+    operators' signature.
+    """
+    if x.dim() == 4:
+        parts, HW = [], x.shape[-2] * x.shape[-1]
+        for k in range(x.shape[0]):
+            ops_k = ArapOperands(**{f: v[k] for f, v in vars(ops).items()})
+            r, c, v = sparse_jacobian(x[k], ops_k, cimg[k])
+            parts.append((r + k * 10 * HW, c + k * 3 * HW, v))
+        return tuple(np.concatenate(p) for p in zip(*parts))
+    xn = x.detach().cpu().numpy()
+    H, W = xn.shape[-2:]
+    HW = H * W
+    s, c = np.sin(xn[2]), np.cos(xn[2])
+    wr = float(np.sqrt(ops.wr2.detach().cpu().numpy()))
+    wf = float(np.sqrt(ops.wf2.detach().cpu().numpy()))
+    vmasks = ops.vmasks.detach().cpu().numpy()
+    fit = ops.fitmask.detach().cpu().numpy()
+    pix = np.arange(HW, dtype=np.int64).reshape(H, W)
+    rows_l, cols_l, vals_l = [], [], []
+
+    def emit(row, col, val):
+        rows_l.append(row.ravel())
+        cols_l.append(col.ravel())
+        vals_l.append(val.ravel())
+
+    yy, xx = np.mgrid[0:H, 0:W]
+    for k, (dy, dx) in enumerate(DIRS):
+        v = vmasks[k]
+        jpix = np.clip(yy + dy, 0, H - 1) * W + np.clip(xx + dx, 0, W - 1)
+        tx, ty = _t_dir(s, c, dy, dx)
+        for comp, t_a in ((0, tx), (1, ty)):
+            row = (2 * k + comp) * HW + pix
+            emit(row, comp * HW + pix, wr * v)        # ∂/∂o_i
+            emit(row, comp * HW + jpix, -wr * v)      # ∂/∂o_j
+            emit(row, 2 * HW + pix, wr * v * t_a)     # ∂/∂a_i
+    for comp in (0, 1):
+        emit((8 + comp) * HW + pix, comp * HW + pix, wf * fit)
+    rows = np.concatenate(rows_l)
+    cols = np.concatenate(cols_l)
+    vals = np.concatenate(vals_l).astype(xn.dtype)
+    keep = vals != 0.0
+    return rows[keep], cols[keep], vals[keep]

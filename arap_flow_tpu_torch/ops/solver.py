@@ -43,6 +43,7 @@ from .energy import (
     ArapOperands,
     anneal_constraints,
     apply_jtj,
+    cost,
     init_state,
     jtf_and_diag,
     trig,
@@ -125,27 +126,25 @@ def _bc(t: torch.Tensor) -> torch.Tensor:
     return t[..., None, None, None]
 
 
-def pcg_solve(ops: ArapOperands, s, c, jtf, diag, max_iters: int,
-              pcg_iters=None, q_tolerance: float = 0.0,
-              rz_tolerance: float = 0.0):
-    """Solve JtJ δ = −JtF with Jacobi-preconditioned CG.
+def pcg_loop(apply, b, pre, budget: float, q_tolerance: float = 0.0,
+             rz_tolerance: float = 0.0, reset_period: int = 0):
+    """Preconditioned CG on A δ = b from δ = 0, A given as `apply`, `pre`
+    the diagonal preconditioner; at most `budget` iterations. With
+    `reset_period` the residual is recomputed from scratch, r = b − A·δ,
+    every that many iterations instead of updated.
 
-    Returns (δ (..., 3, H, W), iterations run per problem). With a tolerance
-    each problem stops on its own (its state freezes, as under ``vmap`` of
-    the JAX while loop); that check reads one flag per iteration back to the
-    host. Without tolerances the loop runs the budget with no host reads.
+    Returns (δ, iterations run per problem, loop passes). With a tolerance
+    (the Q-based ζ test, the relative rz test) each problem stops on its
+    own: its state freezes, as under ``vmap`` of the JAX while loop, and
+    the loop reads one flag an iteration back to the host to end when all
+    have stopped. Without tolerances it runs the budget with no host reads.
     """
-    b = -jtf
-    pre = guarded_invert(diag)
     r = b
     z = pre * r
     p = z
     rz = _dot(r, z)
     rz0 = rz
-    delta = torch.zeros_like(jtf)
-    budget = float(np.minimum(
-        np.float32(max_iters),
-        np.float32(pcg_iters if pcg_iters is not None else max_iters)))
+    delta = torch.zeros_like(b)
     q_tol = torch.tensor(q_tolerance, dtype=rz.dtype, device=rz.device)
     rz_tol = torch.tensor(rz_tolerance, dtype=rz.dtype, device=rz.device)
     use_tols = float(q_tolerance) > 0.0 or float(rz_tolerance) > 0.0
@@ -154,13 +153,16 @@ def pcg_solve(ops: ArapOperands, s, c, jtf, diag, max_iters: int,
     q_prev = torch.zeros_like(rz)
     i = 0
     while i < budget:
-        if use_tols and not bool(active.any()):
+        if i and use_tols and not bool(active.any()):
             break
-        ap = apply_jtj(p, ops, s, c)
+        ap = apply(p)
         pap = _dot(p, ap)
         alpha = _bc(torch.where(pap > 0.0, rz / pap, 0.0))
         delta_n = delta + alpha * p
-        r_n = r - alpha * ap
+        if reset_period and (i + 1) % reset_period == 0:
+            r_n = b - apply(delta_n)
+        else:
+            r_n = r - alpha * ap
         z = pre * r_n
         rz_new = _dot(z, r_n)
         beta = _bc(torch.where(rz > 0.0, rz_new / rz, 0.0))
@@ -184,6 +186,23 @@ def pcg_solve(ops: ArapOperands, s, c, jtf, diag, max_iters: int,
             delta, r, p, rz = delta_n, r_n, p_n, rz_new
             iters = iters + 1.0
         i += 1
+    return delta, iters, i
+
+
+def pcg_solve(ops: ArapOperands, s, c, jtf, diag, max_iters: int,
+              pcg_iters=None, q_tolerance: float = 0.0,
+              rz_tolerance: float = 0.0):
+    """Solve JtJ δ = −JtF with CERES-guarded Jacobi-preconditioned CG
+    (``pcg_loop``) for min(max_iters, pcg_iters) iterations at most.
+
+    Returns (δ (..., 3, H, W), iterations run per problem).
+    """
+    budget = float(np.minimum(
+        np.float32(max_iters),
+        np.float32(pcg_iters if pcg_iters is not None else max_iters)))
+    delta, iters, _ = pcg_loop(lambda p: apply_jtj(p, ops, s, c), -jtf,
+                               guarded_invert(diag), budget, q_tolerance,
+                               rz_tolerance)
     return delta, iters
 
 
@@ -232,6 +251,14 @@ def anneal_solve_stats(ops: ArapOperands, cfg: SolverConfig):
         return x, torch.full(x.shape[:-3], float(num_anneal * gn_iters
                                                  * pcg_iters),
                              dtype=x.dtype, device=x.device)
+    return _per_gn_solve(ops, cfg)
+
+
+def _per_gn_solve(ops: ArapOperands, cfg: SolverConfig, costs=None):
+    """The annealed schedule one ``gn_step`` at a time (`cfg` resolved, not
+    fused). Returns (x, total PCG iterations per problem); with `costs`
+    (a (..., num_anneal · gn_iters) tensor) each GN step's energy is
+    written into it on the device."""
     x = init_state(ops)
     tot = torch.zeros(x.shape[:-3], dtype=x.dtype, device=x.device)
     for i in range(cfg.num_anneal):
@@ -239,10 +266,12 @@ def anneal_solve_stats(ops: ArapOperands, cfg: SolverConfig):
         cimg = anneal_constraints(ops, alpha)
         early = float(cfg.pcg_iters_early) > 0.0 and float(i) < float(cfg.anneal_split)
         pcg_iters = cfg.pcg_iters_early if early else cfg.pcg_iters
-        for _ in range(cfg.gn_iters):
+        for j in range(cfg.gn_iters):
             x, it = gn_step(x, ops, cimg, cfg, pcg_iters, cfg.q_tolerance,
                             cfg.rz_tolerance)
             tot = tot + it
+            if costs is not None:
+                costs[..., i * cfg.gn_iters + j] = cost(x, ops, cimg)
     return x, tot
 
 
@@ -265,6 +294,27 @@ def solve_stats(ops: ArapOperands, cfg: SolverConfig):
     """Like solve() but also returns the PCG iterations run per problem."""
     x, iters = anneal_solve_stats(ops, cfg)
     return x, flow_from_state(x, ops), iters
+
+
+def solve_instrumented(ops: ArapOperands, cfg: SolverConfig):
+    """Full solve recording the energy after every GN step (the JAX
+    ``solve_instrumented``). Returns (x, flow, costs (..., num_anneal ·
+    gn_iters)).
+
+    Each GN step is ``gn_step`` on the route ``resolve_for`` picks, so on
+    CUDA tensors it is one ``pcg_fixed`` launch; each cost is written into
+    a preallocated tensor on the operands' device, with no host read, so x
+    is bitwise ``anneal_solve``'s with the same config (the early/late
+    budget split included). The ``fused`` backend resolves to the per-GN
+    route here, as ``auto`` does: the fused kernel has no cost between its
+    GN steps."""
+    if cfg.backend == "fused":
+        cfg = cfg._replace(backend="auto")
+    cfg = resolve_for(ops, cfg)
+    costs = torch.zeros((*ops.mask.shape[:-2], cfg.num_anneal * cfg.gn_iters),
+                        dtype=ops.mask.dtype, device=ops.mask.device)
+    x, _ = _per_gn_solve(ops, cfg, costs)
+    return x, flow_from_state(x, ops), costs
 
 
 def solve_batch(ops: ArapOperands, cfg: SolverConfig):

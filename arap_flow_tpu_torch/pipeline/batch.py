@@ -45,6 +45,14 @@ _KERNEL_PLANES = 25
 # leaving the rest to the GN step's torch temporaries and the rasterizer.
 _CHUNK_BUDGET = 4 * 2 ** 30
 MAX_CHUNK = 24
+# The buckets ``para_gen --warmup`` runs ahead of the first pair (the JAX
+# package's PREWARM_BUCKETS): the common mid-size shapes of the 31-shape
+# ladder.
+PREWARM_BUCKETS: tuple = (
+    (128, 256), (160, 256), (192, 256), (128, 384), (160, 384), (192, 384),
+    (208, 384), (224, 384), (256, 384), (256, 512), (320, 512), (384, 640),
+    (512, 896),
+)
 
 
 def max_chunk_for(bucket: tuple) -> int:

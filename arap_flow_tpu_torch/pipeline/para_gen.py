@@ -31,8 +31,11 @@ collected and written while chunk k solves. Products are written by the
 native threaded writer (``native.runtime.AsyncWriter``), unless
 ``FrameworkConfig.async_io`` (``ARAP_ASYNC_IO=0``) turns it off.
 
-Not yet ported: ``--mode sharded``. ``--warmup`` and ``--exec_pack`` are
-accepted and only build and load the CUDA kernels.
+``--warmup`` (and ``--exec_pack``, accepted for CLI parity) runs
+``prewarm`` before the first pair: every library built and loaded, one
+dummy solve per common bucket, one matcher call at the ``--size`` frame.
+
+Not yet ported: ``--mode sharded``.
 """
 
 from __future__ import annotations
@@ -118,7 +121,7 @@ class PipelineFlags:
     schedule: str = "parity"  # parity | fast
     seed: int | None = None
     mode: str = "simple"  # simple | batched (sharded is not yet ported)
-    warmup: bool = False  # build and load the kernels up front
+    warmup: bool = False  # prewarm before the first pair
     shard: tuple | None = None  # (i, n): this host takes pairs i, i+n, ...
     match_downscale: int = 1  # match on a 2^k-pooled image
     # "count" skips pairs with <= 10 object pixels; "refsum" replicates the
@@ -583,6 +586,75 @@ def make_solver_config(schedule: str) -> SolverConfig:
     return SolverConfig(pcg_iters_early=150.0, anneal_split=12.0)
 
 
+def prewarm(cfg: SolverConfig, weights, buckets=None, batched: bool = True,
+            frame_shape: tuple | None = None, match_downscale: int = 1,
+            device="cuda") -> None:
+    """Do before the first pair what the first pairs would otherwise pay
+    for (--warmup; the JAX package's ``prewarm``): build and load every
+    library (on a CUDA device the three kernel libraries, and the host
+    library everywhere); then one dummy ``solve_and_raster_canvas`` for each
+    bucket (default ``PREWARM_BUCKETS``) at ``max_chunk_for(bucket)``
+    problems in batched mode and at 1 in simple mode, so that each kernel
+    plan's occupancy query and the allocator's blocks for those shapes are
+    in place; then, given `frame_shape` (H, W), one matcher call at the
+    frame with the matcher's clamps (and one sub-batch call in batched
+    mode). The solves take `cfg`'s route with one anneal step, one GN step
+    and one PCG iteration: the same kernels, plans and buffers as the full
+    schedule. Prints the seconds of each step."""
+    from .. import _build
+    from ..io.constraints import add_border_pins
+    from ..models.arap import solve_and_raster_canvas
+    from ..ops import energy as E
+    from .batch import PREWARM_BUCKETS, max_chunk_for
+
+    device = torch.device(device)
+    t_all = t0 = time.time()
+    if device.type == "cuda":
+        _build.build()
+        for stem in ("pcg", "zncc", "fused_solver"):
+            _build.load(stem)
+    _build.load_native()
+    print(f"warmup libraries: {time.time() - t0:.3f}s", flush=True)
+    short = cfg._replace(num_anneal=1, gn_iters=1, max_pcg_iters=1,
+                         pcg_iters=1.0, pcg_iters_early=0.0, anneal_split=0.0)
+    for bh, bw in buckets or PREWARM_BUCKETS:
+        t0 = time.time()
+        mask = np.full((bh, bw), 255, np.uint8)
+        mask[8 : bh - 8, 8 : bw - 8] = 0
+        cons = add_border_pins(
+            np.array([[bw // 2, bh // 2, bw // 2 + 2, bh // 2 + 1]], np.int32),
+            bw, bh)
+        B = max_chunk_for((bh, bw)) if batched else 1
+        ops = E.CompactOperands.stack(
+            [E.build_compact(mask, cons, weights)] * B).to(device)
+        rgb = torch.zeros((B, 3, bh, bw), dtype=torch.uint8, device=device)
+        out = solve_and_raster_canvas(ops, rgb, np.zeros((B, 2), np.int32),
+                                      short, canvas_hw=(bh, bw),
+                                      compact_flow=batched)
+        out[1].cpu()
+        print(f"warmup {bh}x{bw}: {time.time() - t0:.3f}s", flush=True)
+    if frame_shape is not None:
+        from ..ops.matching import (clamp_match_params, match_grid,
+                                    match_grid_multi)
+
+        t0 = time.time()
+        H, W = frame_shape
+        # the clamps match_images applies, so the call has the real shapes
+        ds = max(1, int(match_downscale))
+        radius, levels = clamp_match_params(H // ds, W // ds,
+                                            int(np.ceil(100 / ds)))
+        z = torch.zeros((3, H, W), dtype=torch.uint8, device=device)
+        match_grid(z, z, stride=max(1, 4 // ds), radius=radius,
+                   levels=levels, downscale=ds)[0].cpu()
+        if batched:
+            zb = torch.zeros((MATCH_SUBBATCH, 3, H, W), dtype=torch.uint8,
+                             device=device)
+            match_grid_multi(zb, zb, stride=max(1, 4 // ds), radius=radius,
+                             levels=levels, downscale=ds)[0].cpu()
+        print(f"warmup matcher {H}x{W}: {time.time() - t0:.3f}s", flush=True)
+    print(f"warmup done in {time.time() - t_all:.3f}s", flush=True)
+
+
 def _check_ported(flags: PipelineFlags) -> None:
     if flags.mode == "sharded":
         raise NotImplementedError("--mode sharded is not yet ported; run one "
@@ -721,13 +793,14 @@ def main_pipeline(
 
     pairs = scan_pairs(flags)
     print(f"{len(pairs)} frame pairs to process")
-    if flags.warmup and device.type == "cuda":
-        from .. import _build
-
-        t0 = time.time()
-        _build.load("pcg")
-        _build.load("zncc")
-        print(f"warmup: kernels built and loaded in {time.time() - t0:.1f}s")
+    if flags.warmup and pairs:
+        # --size is (w, h): the matcher warms only when the frame shape is
+        # known up front, as in the JAX package
+        prewarm(deformer.cfg, deformer.weights,
+                batched=flags.mode == "batched",
+                frame_shape=(flags.size[1], flags.size[0]) if flags.size
+                else None,
+                match_downscale=flags.match_downscale, device=device)
     begin = time.time()
 
     writer = None
@@ -818,13 +891,15 @@ def parse_args(argv=None) -> PipelineFlags:
                         help="multi-host split: this host processes pairs "
                         "I, I+N, I+2N, ... of the sorted scan (e.g. 0/4)")
     parser.add_argument("--warmup", action="store_true",
-                        help="build and load the CUDA kernels up front")
+                        help="before the first pair, build and load every "
+                        "library and run one dummy solve per common bucket "
+                        "(and one matcher call with --size)")
     parser.add_argument("--match_downscale", type=int, default=1,
                         choices=[1, 2, 4],
                         help="run the matcher on a 2x2^k-pooled image")
     parser.add_argument("--exec_pack", default=None, metavar="DIR",
                         help="accepted for CLI parity; the kernels are "
-                        "built once per checkout (like --warmup)")
+                        "built once per checkout, and it implies --warmup")
     parser.add_argument("--mask_gate", choices=["count", "refsum"],
                         default="count",
                         help="empty-mask skip: 'count' skips pairs with <= 10 "

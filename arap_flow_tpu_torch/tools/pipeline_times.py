@@ -2,7 +2,7 @@
 NVIDIA GPU.
 
     python3 arap_flow_tpu_torch/tools/pipeline_times.py [--root DIR] \\
-        [--narap N] [--runs N]
+        [--narap N] [--runs N] [--warmup none|libs|full]
 
 Imports ``chip_smoke`` and ``arap_flow_tpu_torch`` from DIR (default: the
 current directory), builds that checkout's kernels, writes phase 5's tree
@@ -17,6 +17,16 @@ both in one call, in turns:
 
     for r in _archive/parent . . _archive/parent; do
         python3 arap_flow_tpu_torch/tools/pipeline_times.py --root $r; done
+
+``--warmup`` sets what runs between the build and the cold run, which is
+what a fresh process's first pairs gain from it: ``none``; ``libs``, the
+kernel and host libraries loaded; ``full``, ``para_gen --warmup``'s
+``prewarm`` (timed on its own, as ``prewarm_s``). Each run is one fresh
+process, so compare the three in turns in one call:
+
+    for w in none libs full full libs none; do
+        python3 arap_flow_tpu_torch/tools/pipeline_times.py --runs 1 \\
+            --warmup $w; done
 
 The script reads nothing else of the checkout than those two modules, so it
 times a parent commit whose own tree does not have it.
@@ -39,6 +49,10 @@ def main() -> int:
     ap.add_argument("--narap", type=int, default=2,
                     help="para_gen --narap: chunks of 2 x this many pairs")
     ap.add_argument("--runs", type=int, default=2, help="warm runs")
+    ap.add_argument("--warmup", choices=("none", "libs", "full"),
+                    default="none",
+                    help="before the cold run: nothing, the libraries "
+                    "loaded, or para_gen's prewarm")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -55,6 +69,18 @@ def main() -> int:
 
     smi = C.phase_env()
     _, build_s = _build.build()
+    t0 = time.perf_counter()
+    if args.warmup == "libs":
+        for stem in ("pcg", "zncc", "fused_solver"):
+            _build.load(stem)
+        _build.load_native()
+    elif args.warmup == "full":
+        from arap_flow_tpu_torch.ops.energy import ArapWeights
+
+        para_gen.prewarm(SolverConfig(), ArapWeights(), batched=True,
+                         device="cuda")
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
     n_pairs = C.PIPE_FRAMES - 1
     with tempfile.TemporaryDirectory() as tmp:
         inp = os.path.join(tmp, "in")
@@ -79,7 +105,8 @@ def main() -> int:
             warm.append(run(f"warm{i}"))
         stages = {k: round(v, 4) for k, v in para_gen.TIMER.totals.items()}
     print(json.dumps({"root": root, "card": smi, "build_s": build_s,
-                      "narap": args.narap,
+                      "narap": args.narap, "warmup": args.warmup,
+                      "warmup_s": warmup_s,
                       "cold_s_per_pair": cold, "warm_s_per_pair": warm,
                       "warm_stages_s": stages}), flush=True)
     return 0

@@ -112,6 +112,38 @@ Phases, each reported on its own line; any failure exits non-zero:
        (tests/test_matching.py's gate), zncc_search launched once a refine
        level.
 
+9. the Opt C-API facade and the generality path, on phase 3's 854x480
+   frame with segment 0's ellipse moved by OPT_T (a constraint every 8 px,
+   the border pins) in the Opt layout (Offset and UrShape the grid, Angle
+   0, the constraint image annealed per outer iteration, Mask 0 on the
+   object, w_fitSqrt 10, w_regSqrt sqrt(0.01)):
+   9a. ``compat`` with gaussNewtonGPU at 19 outer x nIterations 8 x
+       lIterations 400: the object's median |flow - t| < 1 px and 152
+       pcg_fixed launches (one a step); wall seconds and the final cost.
+   9b. LMGPU on the same inputs (LM_OUTER outer iterations; a cut is
+       printed): median |flow - t| < 1 px, mean |flow_LM - flow_GN| < 2 px
+       over the object (scripts/lm_check.py's bound), at least one
+       accepted step in every outer iteration and every outer iteration's
+       final cost below OPT_DROP of its starting cost (the problem is a
+       pure translation, exactly solvable: a solver that barely moves
+       fails); the PCG iterations the zeta exit left and the wall seconds.
+   9c. both kinds at 2 x 2 x 60 on the card against the CPU: max |d Offset|
+       < 0.05 px, LM's accepts printed; an lIterations = 0 step leaves the
+       bound buffers bitwise unchanged.
+   9d. ``generic.gn_solve`` (torch.func) on a 192x384 crop of the object,
+       and the graph energy (grid_edges) through it, against the
+       specialised solve at 1x3x80 (the PCG kernel): max |dx| < 0.01 over
+       the solve region.
+   9e. ``solve_instrumented`` on phase 3's first segment at 19x8x400: 152
+       finite costs, x bitwise solve's, 152 pcg_fixed launches; the CSV
+       (save_solver_iterations) and a non-empty device trace holding the
+       PCG kernel.
+   9f. ``para_gen --warmup`` in a fresh process on phase 5's tree: the
+       prewarm's seconds by step, the pairs' seconds after it against phase
+       5's cold pair (which the earlier phases warmed in this process;
+       tools/pipeline_times.py --warmup compares fresh processes), the
+       products byte-identical to phase 5's.
+
 The last line is the JSON device record; the line before it lists the
 kernels with their launch counts, errors, times and bounds.
 """
@@ -1125,8 +1157,27 @@ def profile_pipeline(inp: str, out: str, cfg) -> None:
     device_time_report(prof, wall, "phase 5 profiled matcher call (4 pairs)")
 
 
+def tree_digest(out: str, lines) -> dict:
+    """The sha256 of every product file under `out` by relative path, and
+    the list file's lines as relative paths (the file holds absolute
+    ones)."""
+    import hashlib
+
+    got = {"all_files.list": [[os.path.relpath(p, out) for p in ln.split(" ")]
+                              for ln in lines]}
+    for d, _, files in os.walk(out):
+        for f in files:
+            if f != "all_files.list":
+                path = os.path.join(d, f)
+                with open(path, "rb") as fh:
+                    got[os.path.relpath(path, out)] = hashlib.sha256(
+                        fh.read()).hexdigest()
+    return got
+
+
 def phase_pipeline(smi: str, profiled: bool = False):
-    """The dataset pipeline on the card; returns its kernel launches."""
+    """The dataset pipeline on the card; returns its kernel launches, the
+    cold run's product digest (tree_digest) and its seconds per pair."""
     from arap_flow_tpu_torch.ops.energy import ArapWeights
     from arap_flow_tpu_torch.ops.solver import SolverConfig
     from arap_flow_tpu_torch.pipeline import para_gen
@@ -1153,6 +1204,7 @@ def phase_pipeline(smi: str, profiled: bool = False):
         if len(kept) != n_pairs * len(PIPE_OBJECTS) or min(kept.values()) < 20:
             raise AssertionError(f"too few constraints per object: {kept}")
         check_pipeline_products(inp, os.path.join(tmp, "cold"), lines)
+        digest = tree_digest(os.path.join(tmp, "cold"), lines)
 
         para_gen.TIMER = StageTimer()
         zero_counts()
@@ -1167,7 +1219,7 @@ def phase_pipeline(smi: str, profiled: bool = False):
         say("phase 5 warm-run stages:\n" + para_gen.TIMER.report())
         if profiled:
             profile_pipeline(inp, os.path.join(tmp, "profiled"), cfg)
-    return launches
+    return launches, digest, cold / n_pairs
 
 
 def interior_operands(H: int, W: int, seed: int, device):
@@ -1940,6 +1992,373 @@ def phase_subpatch(smi: str) -> None:
         raise AssertionError(line)
 
 
+# Phase 9: the Opt C-API facade and the generality path on phase 3's frame:
+# segment 0's ellipse translated by OPT_T (no rotation), a constraint every
+# 8 px of the object and the border pins, in the Opt layout.
+OPT_T = (10.0, 8.0)
+OPT_SCHEDULE = (19, 8, 400)  # outer (annealing) × nIterations × lIterations
+# LM's outer count (9b), cut from the reference's 19: the plain-torch LM
+# reads a flag back every damped-PCG iteration, so the host issues each
+# iteration's ≈ 100 launches with the queue drained (3.4 ms an iteration,
+# 24.1 s at 19 outer on the H100), more than phase 9's time allows.
+LM_OUTER = 4
+# 9a/9b: every outer iteration's final cost is below this fraction of its
+# starting cost (the exact solution's cost is 0)
+OPT_DROP = 1e-2
+OPT_SHORT = (2, 2, 60)  # 9c: the card against the CPU
+GENERIC_CROP = (192, 384)  # 9d
+GENERIC_SCHEDULE = (3, 80)  # 9d: GN steps × PCG iterations
+
+
+def opt_problem():
+    """(arap mask, constraint sources (K, 2), targets (K, 2)) of phase 9's
+    object: segment 0's ellipse moved by OPT_T, the border pins appended."""
+    from arap_flow_tpu_torch.io.constraints import add_border_pins
+
+    _, arap_mask, _, _ = segment_problem(SEG_SEEDS[0], *SEG_SHAPES[0])
+    ell = arap_mask == 0
+    ys, xs = np.mgrid[0:FRAME_H:8, 0:FRAME_W:8]
+    sel = ell[::8, ::8]
+    sx, sy = xs[sel], ys[sel]
+    tx, ty = sx + int(OPT_T[0]), sy + int(OPT_T[1])
+    keep = (tx >= 0) & (tx < FRAME_W) & (ty >= 0) & (ty < FRAME_H)
+    cons = add_border_pins(np.stack([sx, sy, tx, ty], 1)[keep].astype(
+        np.int32), FRAME_W, FRAME_H)
+    return (arap_mask, cons[:, :2].astype(np.float32),
+            cons[:, 2:].astype(np.float32))
+
+
+def opt_lifecycle(kind: str, schedule, device, problem):
+    """The Opt.h lifecycle of examples/opt_api_lifecycle.py on phase 9's
+    object: Offset and UrShape the grid, Angle 0, the constraint image
+    annealed per outer iteration (α = (i + 1) / outer), Mask 0 on the
+    object, w_fitSqrt 10, w_regSqrt √0.01; each outer iteration an Init and
+    Steps until done. Returns (Offset, Angle, the costs of each outer
+    iteration's steps, each preceded by its starting cost, LM's accepts
+    per step, seconds)."""
+    import torch
+
+    from arap_flow_tpu_torch import compat as opt
+    from arap_flow_tpu_torch.ops import energy as E
+
+    arap_mask, src, tgt = problem
+    n_outer, n_iter, l_iter = schedule
+    H, W = arap_mask.shape
+    gx, gy = np.meshgrid(np.arange(W, dtype=np.float32),
+                         np.arange(H, dtype=np.float32))
+    offset = np.stack([gx, gy], -1)
+    angle = np.zeros((H, W), np.float32)
+    urshape = offset.copy()
+    mask = (arap_mask != 0).astype(np.float32)
+    sxi, syi = src[:, 0].astype(np.int64), src[:, 1].astype(np.int64)
+    state = opt.Opt_NewState(device=device)
+    prob = opt.Opt_ProblemDefine(state, "arap_plan.t", kind)
+    plan = opt.Opt_ProblemPlan(state, prob, (W, H))
+    opt.Opt_SetSolverParameter(state, plan, "nIterations", n_iter)
+    opt.Opt_SetSolverParameter(state, plan, "lIterations", l_iter)
+    costs, accepts = [], []
+    t0 = time.perf_counter()
+    for i in range(n_outer):
+        alpha = np.float32(i + 1) / np.float32(n_outer)
+        cons = np.full((H, W, 2), -1.0, np.float32)
+        cons[syi, sxi] = src + alpha * (tgt - src)
+        params = [offset, angle, urshape, cons, mask, np.float32(10.0),
+                  np.float32(np.sqrt(0.01))]
+        opt.Opt_ProblemInit(state, plan, params)
+        # the starting cost, which the Opt API does not report before a step
+        row, acc = [float(E.cost(plan.x, plan.ops, plan.ops.con_tgt))], []
+        while True:
+            more = opt.Opt_ProblemStep(state, plan, params)
+            row.append(opt.Opt_ProblemCurrentCost(state, plan))
+            if kind == "LMGPU":
+                acc.append(float(plan.lm_state[2]) == 2.0)
+            if not more:
+                break
+        costs.append(row)
+        accepts.append(acc)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    opt.Opt_PlanFree(state, plan)
+    opt.Opt_ProblemDelete(state, prob)
+    return offset, angle, costs, accepts, secs
+
+
+def object_error(offset, arap_mask) -> float:
+    """Median |flow − OPT_T| over the object, flow = Offset − grid."""
+    H, W = arap_mask.shape
+    gx, gy = np.meshgrid(np.arange(W), np.arange(H))
+    obj = arap_mask == 0
+    return float(np.median(np.hypot(offset[..., 0][obj] - gx[obj] - OPT_T[0],
+                                    offset[..., 1][obj] - gy[obj] - OPT_T[1])))
+
+
+def phase_opt(smi: str) -> dict:
+    """9a-9c: the Opt facade's two solver kinds on the card at the
+    reference schedule, then the card against the CPU on a short one.
+    Returns the pcg_fixed launches of 9a."""
+    import torch
+
+    from arap_flow_tpu_torch import compat as opt
+    from arap_flow_tpu_torch.ops import lm
+
+    dev = torch.device("cuda", 0)
+    problem = opt_problem()
+    arap_mask = problem[0]
+    obj = arap_mask == 0
+    n_outer, n_iter, l_iter = OPT_SCHEDULE
+    zero_counts()
+    gn_off, _, gn_costs, _, gn_s = opt_lifecycle("gaussNewtonGPU",
+                                                 OPT_SCHEDULE, dev, problem)
+    launches = read_counts()
+    err = object_error(gn_off, arap_mask)
+    drop = max(r[-1] / r[0] for r in gn_costs)
+    line = (f"phase 9a Opt gaussNewtonGPU {FRAME_W}x{FRAME_H} {n_outer}x"
+            f"{n_iter}x{l_iter}: {gn_s:.3f} s, starting cost "
+            f"{gn_costs[0][0]:.6g}, final cost {gn_costs[-1][-1]:.6g}, the "
+            f"largest final/starting cost of an outer iteration {drop:.3g} "
+            f"(gate < {OPT_DROP:g}), object median |flow - t| {err:.4f} px "
+            f"over {int(obj.sum())} px; pcg_fixed launches "
+            f"{launches['pcg_fixed']} (expected {n_outer * n_iter}) ({smi})")
+    say(line)
+    if not (err < 1.0 and drop < OPT_DROP
+            and launches["pcg_fixed"] == n_outer * n_iter
+            and sum(launches.values()) == launches["pcg_fixed"]):
+        raise AssertionError(line)
+
+    lm_schedule = (LM_OUTER, n_iter, l_iter)
+    lm.ITERATIONS["pcg_damped"] = 0
+    zero_counts()
+    lm_off, _, lm_costs, lm_acc, lm_s = opt_lifecycle("LMGPU", lm_schedule,
+                                                      dev, problem)
+    steps = sum(len(r) - 1 for r in lm_costs)
+    ran = lm.ITERATIONS["pcg_damped"]
+    err = object_error(lm_off, arap_mask)
+    gap = float(np.mean(np.hypot(*(lm_off - gn_off)[obj].T)))
+    drop = max(r[-1] / r[0] for r in lm_costs)
+    accepted_each = all(any(a) for a in lm_acc)
+    line = (f"phase 9b Opt LMGPU {LM_OUTER}x{n_iter}x{l_iter}"
+            f"{'' if LM_OUTER == n_outer else f' (outer cut from {n_outer})'}"
+            f": {lm_s:.3f} s, {steps} steps, {sum(map(sum, lm_acc))} accepted;"
+            f" PCG iterations run {ran} of {steps * l_iter} (the ζ exit left "
+            f"{steps * l_iter - ran}); final cost {lm_costs[-1][-1]:.6g}; "
+            f"object median |flow - t| {err:.4f} px; mean |flow_LM - flow_GN|"
+            f" {gap:.4f} px over the object; accepts per outer iteration "
+            f"{[sum(a) for a in lm_acc]} (each > 0: {accepted_each}); the "
+            f"largest final/starting cost of an outer iteration {drop:.3g} "
+            f"(gate < {OPT_DROP:g}); launches {read_counts()} ({smi})")
+    say(line)
+    if not (err < 1.0 and gap < 2.0 and accepted_each and drop < OPT_DROP):
+        raise AssertionError(line)
+
+    for kind in ("gaussNewtonGPU", "LMGPU"):
+        card = opt_lifecycle(kind, OPT_SHORT, dev, problem)
+        cpu = opt_lifecycle(kind, OPT_SHORT, "cpu", problem)
+        d = float(np.abs(card[0] - cpu[0]).max())
+        pattern = ("" if kind == "gaussNewtonGPU" else
+                   f"; accepts card {card[3]}, cpu {cpu[3]}")
+        line = (f"phase 9c Opt {kind} {'x'.join(map(str, OPT_SHORT))} card "
+                f"against the CPU: max |d Offset| {d:.4g} px, card {card[4]:.3f}"
+                f" s, cpu {cpu[4]:.3f} s{pattern}")
+        say(line)
+        if not d < 0.05:
+            raise AssertionError(line)
+    # lIterations = 0 leaves the bound buffers bitwise unchanged
+    H, W = arap_mask.shape
+    gx, gy = np.meshgrid(np.arange(W, dtype=np.float32),
+                         np.arange(H, dtype=np.float32))
+    offset = np.stack([gx, gy], -1)
+    angle = np.zeros((H, W), np.float32)
+    before = offset.tobytes(), angle.tobytes()
+    state = opt.Opt_NewState(device=dev)
+    plan = opt.Opt_ProblemPlan(state, opt.Opt_ProblemDefine(
+        state, "arap_plan.t", "gaussNewtonGPU"), (W, H))
+    opt.Opt_SetSolverParameter(state, plan, "nIterations", 1)
+    opt.Opt_SetSolverParameter(state, plan, "lIterations", 0)
+    cons = np.full((H, W, 2), -1.0, np.float32)
+    src, tgt = problem[1:]
+    cons[src[:, 1].astype(int), src[:, 0].astype(int)] = tgt
+    zero_counts()
+    opt.Opt_ProblemSolve(state, plan, [offset, angle, offset.copy(), cons,
+                                       (arap_mask != 0).astype(np.float32),
+                                       np.float32(10.0),
+                                       np.float32(np.sqrt(0.01))])
+    same = (offset.tobytes(), angle.tobytes()) == before
+    line = (f"phase 9c lIterations = 0: buffers bitwise unchanged {same}; "
+            f"pcg_fixed launches {read_counts()['pcg_fixed']} (iters = 0)")
+    say(line)
+    if not same:
+        raise AssertionError(line)
+    return launches
+
+
+def generic_crop():
+    """Phase 9's object on a GENERIC_CROP crop of the frame around it,
+    the constraints inside the crop and the crop's border pins."""
+    from arap_flow_tpu_torch.io.constraints import add_border_pins
+
+    arap_mask, src, tgt = opt_problem()
+    ch, cw = GENERIC_CROP
+    ys, xs = np.where(arap_mask == 0)
+    y0 = min(max(int(ys.mean()) - ch // 2, 0), FRAME_H - ch)
+    x0 = min(max(int(xs.mean()) - cw // 2, 0), FRAME_W - cw)
+    m = arap_mask[y0 : y0 + ch, x0 : x0 + cw]
+    if (m == 0).sum() != (arap_mask == 0).sum():
+        raise AssertionError("the object does not fit the crop")
+    c = np.concatenate([src, tgt], 1).astype(np.int64) - [x0, y0, x0, y0]
+    keep = ((c[:, 0] >= 0) & (c[:, 0] < cw) & (c[:, 1] >= 0) & (c[:, 1] < ch)
+            & (c[:, 2] >= 0) & (c[:, 2] < cw) & (c[:, 3] >= 0)
+            & (c[:, 3] < ch))
+    return m, add_border_pins(c[keep].astype(np.int32), cw, ch)
+
+
+def phase_generic(smi: str) -> None:
+    """9d: ops.generic.gn_solve (torch.func) and the graph energies on the
+    card against the specialised solve (the PCG kernel)."""
+    import torch
+
+    from arap_flow_tpu_torch.ops import energy as E
+    from arap_flow_tpu_torch.ops import generic as G
+    from arap_flow_tpu_torch.ops import graph as GR
+    from arap_flow_tpu_torch.ops import solver as S
+
+    dev = torch.device("cuda", 0)
+    m, cons = generic_crop()
+    ch, cw = m.shape
+    gn_iters, pcg_iters = GENERIC_SCHEDULE
+    ops = E.build_operands(m, cons, device=dev)
+    cimg = E.anneal_constraints(ops, 1.0)
+    zero_counts()
+    t0 = time.perf_counter()
+    x_spec, _ = S.solve(ops, S.SolverConfig(num_anneal=1, gn_iters=gn_iters,
+                                            max_pcg_iters=pcg_iters,
+                                            pcg_iters=float(pcg_iters)))
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t0
+    spec_launches = read_counts()["pcg_fixed"]
+
+    def diag_fn(x):
+        return E.jtf_and_diag(x, ops, cimg)[1]
+
+    t0 = time.perf_counter()
+    x_gen = G.gn_solve(lambda x: E.residuals(x, ops, cimg), E.init_state(ops),
+                       gn_iters, pcg_iters, diag_fn=diag_fn)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    edges = torch.as_tensor(GR.grid_edges(m), device=dev)
+    ur = ops.grid.reshape(2, -1)
+    verts = torch.nonzero(ops.fitmask.reshape(-1) > 0)[:, 0]
+    tgts = cimg.reshape(2, -1)[:, verts].T
+
+    def graph_residuals(xf):
+        return (GR.arap_graph_residuals(xf, edges, ur, torch.sqrt(ops.wr2)),
+                GR.fit_graph_residuals(xf, verts, tgts, torch.sqrt(ops.wf2)))
+
+    t0 = time.perf_counter()
+    x_graph = G.gn_solve(graph_residuals, E.init_state(ops).reshape(3, -1),
+                         gn_iters, pcg_iters,
+                         diag_fn=lambda xf: diag_fn(
+                             xf.reshape(3, ch, cw)).reshape(3, -1))
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    act = ops.mask > 0
+    d_gen = float((x_gen - x_spec).abs()[:, act].max())
+    d_graph = float((x_graph.reshape(3, ch, cw) - x_spec).abs()[:, act].max())
+    line = (f"phase 9d generic {ch}x{cw} 1x{gn_iters}x{pcg_iters}: max |x_generic"
+            f" - x_solve| {d_gen:.3g}, graph ({edges.shape[0]} edges, "
+            f"{verts.numel()} fit vertices) {d_graph:.3g} over the solve "
+            f"region; seconds: solve {spec_s:.3f} ({spec_launches} pcg_fixed "
+            f"launches), generic {gen_s:.3f}, graph {graph_s:.3f} ({smi})")
+    say(line)
+    if not (d_gen < 0.01 and d_graph < 0.01 and spec_launches == gn_iters):
+        raise AssertionError(line)
+
+
+def phase_instrumented(smi: str, tasks) -> int:
+    """9e: solve_instrumented on phase 3's first segment at 19x8x400, its
+    CSV and a device trace. Returns its pcg_fixed launches."""
+    import torch
+
+    from arap_flow_tpu_torch.ops import energy as E
+    from arap_flow_tpu_torch.ops import solver as S
+    from arap_flow_tpu_torch.utils import profiling as P
+
+    dev = torch.device("cuda", 0)
+    task = tasks[0]
+    ops = E.expand_operands(E.CompactOperands.stack([task.ops]).to(dev))
+    cfg = S.SolverConfig()
+    n = cfg.num_anneal * cfg.gn_iters
+    zero_counts()
+    x, _, costs, wall = P.profile_solve(ops, cfg)
+    launches = read_counts()["pcg_fixed"]
+    same = torch.equal(x, S.solve(ops, cfg)[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, "iterations.csv")
+        P.save_solver_iterations(csv, costs[0])
+        with open(csv) as f:
+            rows = f.read().splitlines()
+        logdir = os.path.join(tmp, "trace")
+        with P.device_trace(logdir):
+            S.solve_instrumented(ops, cfg._replace(num_anneal=1, gn_iters=2))
+            torch.cuda.synchronize()
+        traces = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+        size = sum(os.path.getsize(p) for p in traces)
+        with open(traces[0]) as f:
+            has_kernel = "pcg_cluster" in f.read()
+    line = (f"phase 9e solve_instrumented {tuple(ops.mask.shape)} 19x8x400: "
+            f"{wall:.3f} s, {costs.shape[-1]} costs (first {costs[0, 0]:.6g}, "
+            f"last {costs[0, -1]:.6g}), all finite {bool(np.isfinite(costs).all())};"
+            f" x bitwise solve's {same}; pcg_fixed launches {launches}; CSV "
+            f"{len(rows)} lines; device trace {len(traces)} file(s), {size} "
+            f"bytes, PCG kernel in it {has_kernel} ({smi})")
+    say(line)
+    if not (costs.shape == (1, n) and np.isfinite(costs).all() and same
+            and launches == n and len(rows) == n + 1 and size > 0
+            and has_kernel):
+        raise AssertionError(line)
+    return launches
+
+
+def phase_warmup(smi: str, digest: dict, cold_pair: float) -> None:
+    """9f: ``para_gen --warmup`` in a fresh process on phase 5's tree: the
+    prewarm's seconds by step, the pipeline's seconds a pair after it, and
+    the products byte-identical to phase 5's."""
+    code = ("import json, sys, time\n"
+            "from arap_flow_tpu_torch.pipeline import para_gen\n"
+            "t0 = time.perf_counter()\n"
+            "para_gen.main(sys.argv[1:])\n"
+            "print(json.dumps({'main_s': time.perf_counter() - t0}))\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        inp, out = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        make_pipeline_tree(inp)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", code, "--input", inp, "--output", out,
+             "--mode", "batched", "--multseg", "--seed", "0", "--warmup"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        proc_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"para_gen --warmup exited {proc.returncode}:"
+                                 f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        warm = [ln for ln in proc.stdout.splitlines() if ln.startswith("warmup")]
+        main_s = json.loads(proc.stdout.strip().splitlines()[-1])["main_s"]
+        warm_s = float(warm[-1].rsplit(" ", 1)[1].rstrip("s"))
+        with open(os.path.join(out, "all_files.list")) as f:
+            lines = f.read().splitlines()
+        same = tree_digest(out, lines) == digest
+    n_pairs = PIPE_FRAMES - 1
+    say("phase 9f prewarm:\n  " + "\n  ".join(warm))
+    line = (f"phase 9f para_gen --warmup in a fresh process: {proc_s:.3f} s "
+            f"(main {main_s:.3f} s, prewarm {warm_s:.3f} s); the pairs after "
+            f"the prewarm {(main_s - warm_s) / n_pairs:.3f} s a pair against "
+            f"phase 5's cold {cold_pair:.3f} (in this process, warmed by the "
+            f"phases before it); products byte-identical to phase 5's: "
+            f"{same} ({smi})")
+    say(line)
+    if not (same and len(warm) >= 3):
+        raise AssertionError(line)
+
+
 def main() -> int:
     import torch
 
@@ -1972,7 +2391,7 @@ def main() -> int:
     if launches["pcg_fixed"] <= 0:
         raise AssertionError("the deform path never launched pcg_fixed")
     z_err, z_ms, z_plain, z_bound, z_by = phase_zncc()
-    launches = phase_pipeline(smi, args.profile)
+    launches, pipe_digest, pipe_cold = phase_pipeline(smi, args.profile)
     if launches["zncc_search"] <= 0 or launches["pcg_fixed"] <= 0:
         raise AssertionError(f"the pipeline missed a kernel: {launches}")
     f_err, f_ms, f_plain = phase_fused(smi, call_ms)
@@ -1988,6 +2407,13 @@ def main() -> int:
         raise AssertionError(f"dmo_gen missed a kernel: {dmo_launches}")
     phase_subpatch(smi)
     say(f"phase 8 seconds: {time.perf_counter() - t0:.3f}")
+    t0 = time.perf_counter()
+    opt_launches = phase_opt(smi)
+    phase_generic(smi)
+    inst_launches = phase_instrumented(smi, tasks)
+    phase_warmup(smi, pipe_digest, pipe_cold)
+    say(f"phase 9 seconds: {time.perf_counter() - t0:.3f}; pcg_fixed launches"
+        f" 9a {opt_launches['pcg_fixed']}, 9e {inst_launches}")
     p_bound, p_by = pcg_bound(*PIPE_PCG_SHAPE)
     f_bound, f_by = fused_bound(*PIPE_PCG_SHAPE, *FUSED_UNIT)
     pcg_row = {"route": "cuda", "source": "arap_flow_tpu_torch/csrc/pcg.cu",

@@ -189,7 +189,10 @@ def test_port_never_imports_jax_at_runtime():
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in _port_sources() if p.name != "__init__.py"
-    )
+    ) + ["arap_flow_tpu_torch.compat"]
+    assert {"arap_flow_tpu_torch.compat.opt_api", "arap_flow_tpu_torch.ops.lm",
+            "arap_flow_tpu_torch.ops.generic",
+            "arap_flow_tpu_torch.ops.graph"} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
