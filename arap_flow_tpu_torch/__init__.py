@@ -17,8 +17,11 @@ mirrors ``arap_flow_tpu``, module for module:
 - ``native``    the host library's Python surface and the numpy plain
                 version of its splat.
 - ``ops``       stencil, ARAP energy operators, PCG and ZNCC kernel
-                wrappers, GN solver, rasterizer, the pyramid matcher.
+                wrappers, GN solver, rasterizer, the pyramid matcher, the
+                two-level warm start.
 - ``models``    ``ArapDeformer`` and the batched canvas solve/raster.
+- ``parallel``  device meshes: a batch split over devices (``data``), the
+                rows of a frame split over devices (``space``).
 - ``pipeline``  ``BatchRunner`` and the para_gen / generate / run_arap /
                 run_warp / deform / warp CLIs.
 - ``utils``     ``FrameworkConfig`` (``ARAP_*`` env vars), ``StageTimer``,

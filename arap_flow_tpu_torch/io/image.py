@@ -9,9 +9,11 @@ where PIL is not installed:
   palette images of 1, 2, 4 or 8 bits, with all five row filters; alpha is
   dropped. PNG write: 8-bit gray and RGB, filter "up" on every row, zlib
   level 1.
-- JPEG read: baseline files with 1 or 3 components, 4:4:4, 4:2:2 or 4:2:0,
-  decoded bitwise equal to PIL (libjpeg-turbo's defaults); progressive,
-  arithmetic-coded, 12-bit and CMYK files raise ValueError. JPEG write:
+- JPEG read: baseline and progressive files with 1 or 3 components, 4:4:4,
+  4:2:2 or 4:2:0, decoded bitwise equal to PIL (libjpeg-turbo's defaults);
+  arithmetic-coded, 12-bit and CMYK files, and progressive ones whose scans
+  leave low-frequency coefficients unrefined (which libjpeg smooths), raise
+  ValueError. JPEG write:
   baseline JFIF, 4:2:0, at ``quality`` (PIL's default 75).
 
 The format is read from the file's first bytes; a file named .png or .jpg

@@ -300,7 +300,7 @@ def _quantize_flow(flows: torch.Tensor) -> torch.Tensor:
 def solve_and_raster_canvas(ops_batched, rgb_batched: torch.Tensor, offs,
                             cfg: SolverConfig, canvas_hw: tuple,
                             compact_flow: bool = True,
-                            transposed: bool = False):
+                            transposed: bool = False, mesh=None):
     """Batched tight-bucket solve + canvas raster.
 
     ops_batched: batched operands on the device (CompactOperands with tensor
@@ -314,7 +314,20 @@ def solve_and_raster_canvas(ops_batched, rgb_batched: torch.Tensor, offs,
     `transposed`: the operands hold the reflected problem (x/y swapped, a
     wide object solved on a tall bucket); the state is transposed back (u/v
     swapped, the angle negated) before rasterization, so flow, raster and
-    paste stay canonical. rgb is canonical."""
+    paste stay canonical. rgb is canonical.
+
+    `mesh` (``parallel.make_mesh``) splits the batch over its 'data' axis:
+    each device solves and rasterizes its slice and the products are
+    gathered on the mesh's first device (``parallel.mesh.data_sharded``);
+    the operands and rgb may then be host numpy (each slice is uploaded to
+    its device)."""
+    if mesh is not None:
+        from ..parallel.mesh import data_sharded
+
+        return data_sharded(
+            mesh, lambda o, r, f: solve_and_raster_canvas(
+                o, r, f, cfg, canvas_hw, compact_flow, transposed),
+            ops_batched, torch.as_tensor(rgb_batched), np.asarray(offs))
     o = _expand(ops_batched)
     x = S.anneal_solve(o, cfg)
     mask, grid = o.mask, o.grid
@@ -351,10 +364,20 @@ def solve_and_raster_canvas(ops_batched, rgb_batched: torch.Tensor, offs,
 
 
 def solve_and_raster_batch(ops_batched, rgb_batched: torch.Tensor,
-                           cfg: SolverConfig, compact_flow: bool = False):
+                           cfg: SolverConfig, compact_flow: bool = False,
+                           mesh=None):
     """Batched solve + rasterize of same-shape problems. ops_batched: batched
     operands on the device; rgb_batched (B, 3, H, W). Returns (x, flow, wrgb
-    u8, wmask u8) batched, flow as i16 fixed point when `compact_flow`."""
+    u8, wmask u8) batched, flow as i16 fixed point when `compact_flow`.
+    `mesh` splits the batch over its 'data' axis, as in
+    ``solve_and_raster_canvas``."""
+    if mesh is not None:
+        from ..parallel.mesh import data_sharded
+
+        return data_sharded(
+            mesh, lambda o, r: solve_and_raster_batch(o, r, cfg,
+                                                      compact_flow),
+            ops_batched, torch.as_tensor(rgb_batched))
     o = _expand(ops_batched)
     x = S.anneal_solve(o, cfg)
     flows = S.flow_from_state(x, o)

@@ -9,8 +9,9 @@ The library (``src/arap_native.cpp``) is built with g++ on first use by
 - ``flo_write`` / ``flo_read``: the .flo codec, byte-equal to ``io.flo``;
 - ``AsyncWriter``: a pool of writer threads for .flo fields and encoded
   images; each submit copies its data;
-- ``jpeg_info`` / ``jpeg_decode`` / ``jpeg_encode``: the baseline JPEG
-  codec behind ``io.image``. A file it does not decode raises ValueError.
+- ``jpeg_info`` / ``jpeg_decode`` / ``jpeg_encode``: the JPEG codec behind
+  ``io.image`` (baseline and progressive decode, baseline encode). A file
+  it does not decode raises ValueError.
 """
 
 from __future__ import annotations
@@ -135,8 +136,9 @@ def jpeg_info(data: bytes) -> tuple[int, int, int]:
 
 
 def jpeg_decode(data: bytes) -> np.ndarray:
-    """Decode a baseline JPEG: (H, W) uint8 for one component, (H, W, 3)
-    RGB for three, equal to libjpeg-turbo's default decode (PIL's)."""
+    """Decode a baseline or progressive JPEG: (H, W) uint8 for one
+    component, (H, W, 3) RGB for three, equal to libjpeg-turbo's default
+    decode (PIL's)."""
     lib = _lib()
     H, W, C = jpeg_info(data)
     out = np.empty((H, W) if C == 1 else (H, W, 3), np.uint8)

@@ -11,15 +11,21 @@
 //   warping/src/main.cpp:145-225 and deformation CombinedSolver.h:248-342;
 // - .flo layout ('PIEH', int32 w/h, interleaved row-major float32 u,v).
 //
-// The JPEG decoder reads baseline files (SOF0/SOF1, 8-bit samples, Huffman
-// coding, 1 or 3 components, sampling h1v1, h2v1 or h2v2, restart markers)
-// and reproduces libjpeg-turbo's default decode, which PIL uses: the ISLOW
-// integer IDCT (jidctint.c, CONST_BITS 13, PASS1_BITS 2), fancy (triangle)
-// upsampling of the chroma (jdsample.c h2v1/h2v2_fancy_upsample, plain
-// replication where the chroma is at most 2 samples wide) and the
-// fixed-point YCbCr->RGB tables (jdcolor.c). Anything else (progressive,
-// arithmetic coding, 12-bit, CMYK, other sampling factors) is refused with
-// an error message. The encoder writes baseline JFIF files: RGB->YCbCr in
+// The JPEG decoder reads baseline and progressive files (SOF0/SOF1 and
+// SOF2, 8-bit samples, Huffman coding, 1 or 3 components, sampling h1v1,
+// h2v1 or h2v2, restart markers) and reproduces libjpeg-turbo's default
+// decode, which PIL uses: the ISLOW integer IDCT (jidctint.c, CONST_BITS
+// 13, PASS1_BITS 2), fancy (triangle) upsampling of the chroma (jdsample.c
+// h2v1/h2v2_fancy_upsample, plain replication where the chroma is at most
+// 2 samples wide) and the fixed-point YCbCr->RGB tables (jdcolor.c). A
+// progressive file's scans (DC first and refinement, AC spectral selection
+// with EOB runs, AC successive approximation: ITU T.81 G.1.2, jdphuff.c)
+// build the coefficient planes, which then take the same IDCT and colour
+// path. libjpeg's block smoothing (jdcoefct.c) runs only while some of the
+// first AC coefficients are left unrefined at the end of the file; such a
+// file (a scan script that stops early) is refused, as is anything else
+// (arithmetic coding, 12-bit, CMYK, other sampling factors), with an error
+// message. The encoder writes baseline JFIF files: RGB->YCbCr in
 // fixed point, 4:2:0 chroma, the islow forward DCT (jfdctint.c), the
 // quality-scaled Annex K quantization tables and the Annex K Huffman tables.
 //
@@ -615,6 +621,15 @@ struct Component {
   int bw = 0, bh = 0;  // block grid, padded to whole MCUs
   std::vector<uint8_t> pix;
   int pred = 0;
+  // the quantization table, latched at the component's first scan (as
+  // libjpeg's latch_quant_tables does)
+  bool latched = false;
+  uint16_t q[64];
+  // progressive only: the quantized coefficients of every block (JCOEF,
+  // 16 bits, in natural order) and, per zigzag index, the successive-
+  // approximation bit of the last scan that coded it (-1: none yet)
+  std::vector<int16_t> coef;
+  int coef_bits[64];
 };
 
 struct Decoder {
@@ -631,7 +646,9 @@ struct Decoder {
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   bool frame = false;
+  bool progressive = false;
   int scans = 0;
+  int eobrun = 0;  // progressive AC scans: blocks left in the current EOB run
 
   Decoder(const uint8_t* d, long n) : data(d), end(d + n), p(d) {}
 
@@ -660,9 +677,11 @@ struct Decoder {
     H = u16();
     W = u16();
     nc = u8();
-    if (marker != 0xC0 && marker != 0xC1)
-      fail("JPEG process is not baseline (progressive, lossless or "
-           "arithmetic coding) and is not supported");
+    if (marker != 0xC0 && marker != 0xC1 && marker != 0xC2)
+      fail("JPEG process is neither baseline nor progressive Huffman "
+           "(lossless, hierarchical or arithmetic coding) and is not "
+           "supported");
+    progressive = marker == 0xC2;
     if (precision != 8) fail("JPEG with 12-bit samples is not supported");
     if (H <= 0 || W <= 0) fail("JPEG with a zero or DNL-defined size");
     if (nc != 1 && nc != 3)
@@ -705,6 +724,10 @@ struct Decoder {
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
       c.pix.assign((size_t)c.bw * 8 * c.bh * 8, 0);
+      if (progressive) {
+        c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+        std::fill(c.coef_bits, c.coef_bits + 64, -1);
+      }
     }
     p = seg_end;
     frame = true;
@@ -779,8 +802,155 @@ struct Decoder {
       }
     }
     int stride = c.bw * 8;
-    idct_islow(coef, qt[c.tq], c.pix.data() + (size_t)by * 8 * stride + bx * 8,
+    idct_islow(coef, c.q, c.pix.data() + (size_t)by * 8 * stride + bx * 8,
                stride);
+  }
+
+  // ---- progressive scans (jdphuff.c), into c.coef ----
+
+  int16_t* block(Component& c, int by, int bx) {
+    return c.coef.data() + ((size_t)by * c.bw + bx) * 64;
+  }
+
+  void dc_first(BitReader& br, Component& c, int16_t* blk, int al) {
+    int t = decode_symbol(br, dc[c.td]);
+    if (t > 11) fail("corrupt JPEG data: DC magnitude");
+    c.pred += extend(br.get(t), t);
+    blk[0] = (int16_t)(int)((unsigned)c.pred << al);
+  }
+
+  static void dc_refine(BitReader& br, int16_t* blk, int al) {
+    if (br.get(1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+  }
+
+  void ac_first(BitReader& br, const Huffman& h, int16_t* blk, int ss, int se,
+                int al) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int rs = decode_symbol(br, h);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > se) fail("corrupt JPEG data: coefficient index");
+        blk[kNatural[k]] = (int16_t)(int)((unsigned)extend(br.get(s), s) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = (1 << r) + (int)br.get(r) - 1;
+        break;
+      }
+    }
+  }
+
+  // a coefficient already nonzero takes one correction bit: its magnitude
+  // grows by 1 << al unless that bit is set already
+  static void refine_nonzero(BitReader& br, int16_t* c, int p1) {
+    if (br.get(1) && (*c & p1) == 0) *c = (int16_t)(*c + (*c >= 0 ? p1 : -p1));
+  }
+
+  void ac_refine(BitReader& br, const Huffman& h, int16_t* blk, int ss, int se,
+                 int al) {
+    const int p1 = 1 << al;
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int rs = decode_symbol(br, h);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          // a new coefficient of magnitude 1 (libjpeg reads any size as 1)
+          s = br.get(1) ? p1 : -p1;
+        } else if (r != 15) {
+          eobrun = (1 << r) + (int)br.get(r);
+          break;
+        }
+        // skip r zero coefficients, refining the nonzero ones passed
+        do {
+          int16_t* c = blk + kNatural[k];
+          if (*c != 0) {
+            refine_nonzero(br, c, p1);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) {
+          if (k > se) fail("corrupt JPEG data: coefficient index");
+          blk[kNatural[k]] = (int16_t)s;
+        }
+      }
+    }
+    if (eobrun > 0) {  // the rest of this block lies in an EOB run
+      for (; k <= se; ++k) {
+        int16_t* c = blk + kNatural[k];
+        if (*c != 0) refine_nonzero(br, c, p1);
+      }
+      --eobrun;
+    }
+  }
+
+  // The progressive file's coefficients through the IDCT. libjpeg-turbo
+  // smooths the blocks (decompress_smooth_data) when, at the output pass,
+  // every component has DC coded, its first ten quantizers are nonzero
+  // and some of its zigzag coefficients 1..9 is unrefined (coef_bits != 0);
+  // such a file is refused.
+  void finish_progressive() {
+    static const int kSmoothQ[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool smooth_ok = true, useful = false;
+    for (int i = 0; i < nc; ++i) {
+      const Component& c = comp[i];
+      if (!c.latched) fail("progressive JPEG component without a scan");
+      for (int k : kSmoothQ)
+        if (c.q[k] == 0) smooth_ok = false;
+      if (c.coef_bits[0] < 0) smooth_ok = false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    if (smooth_ok && useful)
+      fail("progressive JPEG whose scans leave low-frequency coefficients "
+           "unrefined (libjpeg's block smoothing is not reproduced)");
+    int32_t tmp[64];
+    for (int i = 0; i < nc; ++i) {
+      Component& c = comp[i];
+      const int stride = c.bw * 8;
+      for (int by = 0; by < c.bh; ++by)
+        for (int bx = 0; bx < c.bw; ++bx) {
+          const int16_t* blk = block(c, by, bx);
+          for (int k = 0; k < 64; ++k) tmp[k] = blk[k];
+          idct_islow(tmp, c.q,
+                     c.pix.data() + (size_t)by * 8 * stride + bx * 8, stride);
+        }
+    }
+  }
+
+  // One MCU of a progressive scan: DC scans may interleave components, AC
+  // scans hold one.
+  void prog_unit(BitReader& br, Component* const* sc, int ns, int my, int mx,
+                 int ss, int se, int ah, int al) {
+    auto one = [&](Component& c, int by, int bx) {
+      int16_t* blk = block(c, by, bx);
+      if (ss == 0) {
+        if (ah == 0)
+          dc_first(br, c, blk, al);
+        else
+          dc_refine(br, blk, al);
+      } else if (ah == 0) {
+        ac_first(br, ac[c.ta], blk, ss, se, al);
+      } else {
+        ac_refine(br, ac[c.ta], blk, ss, se, al);
+      }
+    };
+    if (ns == 1) {
+      one(*sc[0], my, mx);
+      return;
+    }
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *sc[i];
+      for (int v = 0; v < c.v; ++v)
+        for (int h = 0; h < c.h; ++h) one(c, my * c.v + v, mx * c.h + h);
+    }
   }
 
   void read_sos() {
@@ -797,16 +967,35 @@ struct Decoder {
       if (!c) fail("JPEG scan names an unknown component");
       c->td = t >> 4;
       c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3 || !dc[c->td].present ||
-          !ac[c->ta].present)
-        fail("JPEG scan uses a missing Huffman table");
+      if (c->td > 3 || c->ta > 3) fail("bad JPEG Huffman table id");
       if (!qt_set[c->tq]) fail("JPEG scan uses a missing quantization table");
       sc[i] = c;
     }
     int ss = u8(), se = u8(), ahl = u8();
-    if (ss != 0 || se != 63 || ahl != 0)
-      fail("JPEG scan is not sequential (progressive?)");
-    for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+    int ah = ahl >> 4, al = ahl & 15;
+    if (!progressive && (ss != 0 || se != 63 || ahl != 0))
+      fail("bad JPEG scan parameters for a sequential frame");
+    if (progressive &&
+        ((ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1)) ||
+         (ah != 0 && al != ah - 1) || al > 13))
+      fail("bad JPEG progressive scan parameters");
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *sc[i];
+      // the tables this scan decodes with: DC ones for a sequential or a DC
+      // first scan, AC ones for a sequential or an AC scan
+      bool need_dc = !progressive || (ss == 0 && ah == 0);
+      bool need_ac = !progressive || ss != 0;
+      if ((need_dc && !dc[c.td].present) || (need_ac && !ac[c.ta].present))
+        fail("JPEG scan uses a missing Huffman table");
+      if (!c.latched) {
+        std::memcpy(c.q, qt[c.tq], sizeof(c.q));
+        c.latched = true;
+      }
+      if (progressive)
+        for (int k = ss; k <= se; ++k) c.coef_bits[k] = al;
+      c.pred = 0;
+    }
+    eobrun = 0;
     BitReader br{p, end};
     // MCU geometry: an interleaved scan walks whole MCUs; a one-component
     // scan walks that component's own blocks (ceil(size / 8))
@@ -828,8 +1017,11 @@ struct Decoder {
             fail("corrupt JPEG data: missing restart marker");
           br.p += 2;
           for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+          eobrun = 0;
         }
-        if (ns == 1) {
+        if (progressive) {
+          prog_unit(br, sc, ns, my, mx, ss, se, ah, al);
+        } else if (ns == 1) {
           decode_block(br, *sc[0], my, mx);
         } else {
           for (int i = 0; i < ns; ++i) {
@@ -886,6 +1078,7 @@ struct Decoder {
     }
     if (header_only) fail("JPEG without a frame header");
     if (!frame || scans == 0) fail("JPEG without image data");
+    if (progressive) finish_progressive();
   }
 
   bool rgb_colorspace() const {
@@ -1387,7 +1580,7 @@ int jpeg_info(const uint8_t* data, long n, int* H, int* W, int* C) {
   }
 }
 
-// Decode a baseline JPEG into out: (H, W) samples for one component, (H, W,
+// Decode a baseline or progressive JPEG into out: (H, W) samples for one component, (H, W,
 // 3) RGB for three; H, W and C must be jpeg_info's. Returns 0, or -1 with
 // jpeg_last_error() set.
 int jpeg_decode(const uint8_t* data, long n, uint8_t* out, int H, int W,

@@ -12,7 +12,9 @@ arrays. Each dispatched chunk records an event after its last launch, and
 its copy runs on a side stream that waits on that event alone
 (``utils.transfer``), so collecting chunk k−1 does not wait for work queued
 after it; pastes run on one worker thread, overlapped with the next copy.
-Segments too large for any bucket fall back to a full-frame solve.
+Segments too large for any bucket fall back to a full-frame solve;
+``run_tasks`` runs a list of tasks and fallbacks in one call. With a device
+mesh (``parallel.make_mesh``) each chunk is split over its 'data' axis.
 """
 
 from __future__ import annotations
@@ -55,12 +57,14 @@ PREWARM_BUCKETS: tuple = (
 )
 
 
-def max_chunk_for(bucket: tuple) -> int:
+def max_chunk_for(bucket: tuple, n_data: int = 1) -> int:
     """Largest chunk of this bucket shape whose PCG kernel state fits the
-    chunk budget, capped at MAX_CHUNK."""
+    chunk budget, capped at MAX_CHUNK. The budget is per device, so a chunk
+    split over `n_data` devices (``--mode sharded``) is `n_data` times as
+    large."""
     bh, bw = bucket
     per_problem = _KERNEL_PLANES * bh * bw * 4
-    return max(1, min(MAX_CHUNK, _CHUNK_BUDGET // per_problem))
+    return n_data * max(1, min(MAX_CHUNK, _CHUNK_BUDGET // per_problem))
 
 
 @dataclass
@@ -166,39 +170,47 @@ class BatchRunner:
     """Streaming bucketed execution on one device: ``add`` tasks as host prep
     produces them; a bucket's chunk is enqueued the moment it fills.
     ``finish`` enqueues the remainders at their real size, copies every
-    product back and pastes it into full-frame arrays."""
+    product back and pastes it into full-frame arrays.
+
+    With a `mesh` (``parallel.make_mesh``) each chunk holds
+    ``max_chunk_for(bucket, n_data)`` tasks and is split over the mesh's
+    'data' axis, each device solving its slice; the products gather on the
+    mesh's first device. Full-frame fallbacks solve on `device`."""
 
     def __init__(self, cfg: SolverConfig, *, device, timer=None,
-                 weights: E.ArapWeights = E.ArapWeights()):
+                 weights: E.ArapWeights = E.ArapWeights(), mesh=None):
         self.cfg = cfg
         self.device = torch.device(device)
         self.timer = timer if timer is not None else StageTimer()
         self.weights = weights
+        self.mesh = mesh
+        self.n_data = 1 if mesh is None else mesh.shape["data"]
         self.buffers: dict[tuple, list[SegmentTask]] = {}
         self.pending: list = []
         self.out: dict[tuple, DeformResult] = {}
 
     def _dispatch(self, chunk_tasks: list[SegmentTask]) -> None:
         with self.timer.stage("upload+stack"):
-            ops = E.CompactOperands.stack([t.ops for t in chunk_tasks]).to(
-                self.device)
-            rgb = torch.as_tensor(np.stack([t.rgb for t in chunk_tasks]),
-                                  device=self.device)
+            ops = E.CompactOperands.stack([t.ops for t in chunk_tasks])
+            rgb = np.stack([t.rgb for t in chunk_tasks])
+            if self.mesh is None:  # a mesh uploads each slice to its device
+                ops = ops.to(self.device)
+                rgb = torch.as_tensor(rgb, device=self.device)
             offs = np.asarray(
                 [(t.y0 - t.cy0, t.x0 - t.cx0) for t in chunk_tasks], np.int32)
         with self.timer.stage("solve+raster dispatch"):
             flows, wrgbs, wmasks = solve_and_raster_canvas(
                 ops, rgb, offs, self.cfg, canvas_hw=chunk_tasks[0].canvas,
-                transposed=chunk_tasks[0].transposed,
+                transposed=chunk_tasks[0].transposed, mesh=self.mesh,
             )
-        self.pending.append((chunk_tasks, transfer.mark(self.device), flows,
+        self.pending.append((chunk_tasks, transfer.mark(flows.device), flows,
                              wrgbs, wmasks))
 
     def add(self, task: SegmentTask) -> None:
         key = (task.bucket, task.canvas, task.transposed)
         buf = self.buffers.setdefault(key, [])
         buf.append(task)
-        step = max_chunk_for(task.bucket)
+        step = max_chunk_for(task.bucket, self.n_data)
         if len(buf) >= step:
             self._dispatch(buf[:step])
             del buf[:step]
@@ -279,3 +291,21 @@ class BatchRunner:
                 f.result()  # join, and raise a paste's exception here
         self.pending.clear()
         return self.out
+
+
+def run_tasks(tasks: list[SegmentTask], fallbacks: list[tuple],
+              cfg: SolverConfig, *, device, timer=None, mesh=None,
+              weights: E.ArapWeights = E.ArapWeights()
+              ) -> dict[tuple, DeformResult]:
+    """Run bucketed tasks (batched per bucket) and full-frame fallbacks in one
+    call. `fallbacks`: (pair_idx, seg_id, rgb, arap_mask, cons) tuples;
+    `weights` applies to the fallback solves (bucketed tasks carry theirs
+    from make_task); `mesh` splits each chunk over its 'data' axis. Returns
+    {(pair_idx, seg_id): DeformResult} with full-frame arrays."""
+    runner = BatchRunner(cfg, device=device, timer=timer, weights=weights,
+                         mesh=mesh)
+    for t in tasks:
+        runner.add(t)
+    for pair_idx, seg_id, rgb, arap_mask, cons in fallbacks:
+        runner.add_fallback(pair_idx, seg_id, rgb, arap_mask, cons)
+    return runner.finish()

@@ -9,7 +9,9 @@
 The schedule is the reference's 19 × 8 × 400 (``--schedule parity``);
 ``--schedule fast`` enables the PCG ζ early exit, which runs the plain
 torch PCG (``SolverConfig`` backend "auto"). Frames of the same size solve
-together as one batch.
+together as one batch, unless ARAP_RASTER=host asks for the exact host
+splat, which runs frame by frame; a batch that fails is retried frame by
+frame, and the frames that still fail are reported at the end.
 """
 
 from __future__ import annotations
@@ -51,30 +53,53 @@ def parse_list_file(path) -> list[FramePaths]:
 
 
 def deform_frames(frames: list[FramePaths], cfg: SolverConfig, *, device,
-                  fw: FrameworkConfig | None = None) -> None:
+                  fw: FrameworkConfig | None = None) -> list[FramePaths]:
     """Deform a list of frames, writing .flo + warped RGB/mask per frame.
 
     Frames are grouped by shape (read from the image headers); a group of
     two or more solves as batches of max_chunk_for frames with
-    solve_and_raster_batch, a frame whose shape is seen once solves alone."""
+    solve_and_raster_batch, a frame whose shape is seen once solves alone.
+    A batch that raises is retried frame by frame. Under ``raster="host"``
+    (ARAP_RASTER=host) every frame runs the per-frame deformer, whose
+    reference-exact host splat the batched path (a device raster) does not
+    have. Returns the frames that failed alone, each reported as it
+    failed."""
     fw = fw or FrameworkConfig()
     device = torch.device(device)
-    groups: dict[tuple, list[int]] = {}
-    for i, fr in enumerate(frames):
-        groups.setdefault(image_size(fr.mask), []).append(i)
     deformer = ArapDeformer(cfg, weights=fw.weights, raster=fw.raster,
                             device=device)
-    for (H, W), idxs in groups.items():
-        if len(idxs) < 2:
-            fr = frames[idxs[0]]
+    failed: list[FramePaths] = []
+
+    def serial(fr: FramePaths) -> None:
+        try:
             _write_result(fr, deformer.deform(
                 load_rgb(fr.rgb), load_mask(fr.mask),
                 read_constraint_file(fr.cstr)))
+        except Exception as e:  # noqa: BLE001 — report it, go on with the list
+            print(f"frame failed: {fr.rgb} ({e!r})")
+            failed.append(fr)
+
+    if fw.raster == "host":
+        for fr in frames:
+            serial(fr)
+        return failed
+    groups: dict[tuple, list[int]] = {}
+    for i, fr in enumerate(frames):
+        groups.setdefault(image_size(fr.mask), []).append(i)
+    for (H, W), idxs in groups.items():
+        if len(idxs) < 2:
+            serial(frames[idxs[0]])
             continue
         step = max_chunk_for((H, W))
         for c0 in range(0, len(idxs), step):
-            _deform_chunk([frames[i] for i in idxs[c0 : c0 + step]], H, W,
-                          cfg, fw, device)
+            chunk = [frames[i] for i in idxs[c0 : c0 + step]]
+            try:
+                _deform_chunk(chunk, H, W, cfg, fw, device)
+            except Exception as e:  # noqa: BLE001 — isolate the bad frame
+                print(f"batched chunk failed ({e!r}); retrying frame by frame")
+                for fr in chunk:
+                    serial(fr)
+    return failed
 
 
 def _write_result(fr: FramePaths, res: DeformResult) -> None:
@@ -86,7 +111,8 @@ def _write_result(fr: FramePaths, res: DeformResult) -> None:
 
 def _deform_chunk(chunk: list[FramePaths], H: int, W: int,
                   cfg: SolverConfig, fw: FrameworkConfig, device) -> None:
-    """Solve and rasterize same-shape frames as one batch."""
+    """Solve and rasterize same-shape frames as one batch; writes nothing
+    unless the whole batch solved."""
     ops, rgbs = [], []
     for fr in chunk:
         cons = add_border_pins(np.asarray(
@@ -139,7 +165,9 @@ def main(argv=None):
         p.error("no frames to process")
     device = cli_device(a.device)
     fw = make_framework_config(a.schedule)
-    deform_frames(frames, fw.solver, device=device, fw=fw)
+    failed = deform_frames(frames, fw.solver, device=device, fw=fw)
+    if failed:
+        raise SystemExit(f"{len(failed)} of {len(frames)} frames failed")
 
 
 if __name__ == "__main__":

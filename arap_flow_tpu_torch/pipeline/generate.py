@@ -27,7 +27,7 @@ from ..utils.config import cli_device
 from .para_gen import (
     BackgroundPool,
     PipelineFlags,
-    _check_ported,
+    _check_flags,
     _ensure_dirs,
     add_bg,
     has_mask,
@@ -139,7 +139,7 @@ def main(argv=None):
         dm_bin=a.dm_bin, schedule=a.schedule, seed=a.seed,
         device=str(cli_device(a.device)),
     )
-    _check_ported(flags)
+    _check_flags(flags)
     pairs = scan_pairs(flags)
     print(f"{len(pairs)} frame pairs")
     for name in a.phases:

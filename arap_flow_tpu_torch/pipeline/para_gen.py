@@ -35,7 +35,10 @@ native threaded writer (``native.runtime.AsyncWriter``), unless
 ``prewarm`` before the first pair: every library built and loaded, one
 dummy solve per common bucket, one matcher call at the ``--size`` frame.
 
-Not yet ported: ``--mode sharded``.
+``--mode sharded`` is the batched loop with each solve chunk split over a
+device mesh (``parallel.make_mesh``: every visible CUDA device, or the CPU
+under ``--device cpu``), ``max(2·--narap, 2·devices)`` pairs a chunk; on one
+card it is the batched path.
 """
 
 from __future__ import annotations
@@ -120,7 +123,7 @@ class PipelineFlags:
     dm_bin: str | None = None
     schedule: str = "parity"  # parity | fast
     seed: int | None = None
-    mode: str = "simple"  # simple | batched (sharded is not yet ported)
+    mode: str = "simple"  # simple | batched | sharded
     warmup: bool = False  # prewarm before the first pair
     shard: tuple | None = None  # (i, n): this host takes pairs i, i+n, ...
     match_downscale: int = 1  # match on a 2^k-pooled image
@@ -519,14 +522,16 @@ def prep_chunk_finish(flags: PipelineFlags, pairs, handles, weights,
     return works, tasks, fallbacks
 
 
-def dispatch_chunk_batched(prepped, cfg, weights, device):
-    """Enqueue a prepped chunk's solves; returns the in-flight state for
-    collect_chunk_batched. A dispatch error is kept for the collector, which
-    retries the chunk pair by pair."""
+def dispatch_chunk_batched(prepped, cfg, weights, device, mesh=None):
+    """Enqueue a prepped chunk's solves (split over `mesh`'s 'data' axis when
+    given); returns the in-flight state for collect_chunk_batched. A
+    dispatch error is kept for the collector, which retries the chunk pair
+    by pair."""
     from .batch import BatchRunner
 
     works, tasks, fallbacks = prepped
-    runner = BatchRunner(cfg, device=device, weights=weights, timer=TIMER)
+    runner = BatchRunner(cfg, device=device, weights=weights, timer=TIMER,
+                         mesh=mesh)
     err = None
     try:
         for t in tasks:
@@ -588,7 +593,7 @@ def make_solver_config(schedule: str) -> SolverConfig:
 
 def prewarm(cfg: SolverConfig, weights, buckets=None, batched: bool = True,
             frame_shape: tuple | None = None, match_downscale: int = 1,
-            device="cuda") -> None:
+            device="cuda", mesh=None) -> None:
     """Do before the first pair what the first pairs would otherwise pay
     for (--warmup; the JAX package's ``prewarm``): build and load every
     library (on a CUDA device the three kernel libraries, and the host
@@ -600,7 +605,9 @@ def prewarm(cfg: SolverConfig, weights, buckets=None, batched: bool = True,
     frame with the matcher's clamps (and one sub-batch call in batched
     mode). The solves take `cfg`'s route with one anneal step, one GN step
     and one PCG iteration: the same kernels, plans and buffers as the full
-    schedule. Prints the seconds of each step."""
+    schedule. With a `mesh` (--mode sharded) the solves run split over it
+    at the sharded chunk size, ``max_chunk_for(bucket, n_data)``. Prints the
+    seconds of each step."""
     from .. import _build
     from ..io.constraints import add_border_pins
     from ..models.arap import solve_and_raster_canvas
@@ -624,13 +631,16 @@ def prewarm(cfg: SolverConfig, weights, buckets=None, batched: bool = True,
         cons = add_border_pins(
             np.array([[bw // 2, bh // 2, bw // 2 + 2, bh // 2 + 1]], np.int32),
             bw, bh)
-        B = max_chunk_for((bh, bw)) if batched else 1
-        ops = E.CompactOperands.stack(
-            [E.build_compact(mask, cons, weights)] * B).to(device)
-        rgb = torch.zeros((B, 3, bh, bw), dtype=torch.uint8, device=device)
+        n_data = 1 if mesh is None else mesh.shape["data"]
+        B = max_chunk_for((bh, bw), n_data) if batched else 1
+        ops = E.CompactOperands.stack([E.build_compact(mask, cons, weights)]
+                                      * B)
+        rgb = np.zeros((B, 3, bh, bw), np.uint8)
+        if mesh is None:  # a mesh uploads each slice to its device
+            ops, rgb = ops.to(device), torch.as_tensor(rgb, device=device)
         out = solve_and_raster_canvas(ops, rgb, np.zeros((B, 2), np.int32),
                                       short, canvas_hw=(bh, bw),
-                                      compact_flow=batched)
+                                      compact_flow=batched, mesh=mesh)
         out[1].cpu()
         print(f"warmup {bh}x{bw}: {time.time() - t0:.3f}s", flush=True)
     if frame_shape is not None:
@@ -655,11 +665,8 @@ def prewarm(cfg: SolverConfig, weights, buckets=None, batched: bool = True,
     print(f"warmup done in {time.time() - t_all:.3f}s", flush=True)
 
 
-def _check_ported(flags: PipelineFlags) -> None:
-    if flags.mode == "sharded":
-        raise NotImplementedError("--mode sharded is not yet ported; run one "
-                                  "process per card with --shard I/N")
-    if flags.mode not in ("simple", "batched"):
+def _check_flags(flags: PipelineFlags) -> None:
+    if flags.mode not in ("simple", "batched", "sharded"):
         raise ValueError(f"unknown --mode {flags.mode!r}")
     if flags.matcher not in ("native", "binary", "file"):
         raise ValueError(f"unknown --matcher {flags.matcher!r}")
@@ -683,11 +690,12 @@ def plan_chunks(pairs: list, chunk: int) -> list[list]:
 
 
 def _run_batched(flags, chunks, n_pairs, deformer, bgpool, device,
-                 writer) -> list[str]:
+                 writer, mesh=None) -> list[str]:
     """The depth-2 batched loop (JAX para_gen.py:876-954). Iteration k:
     enqueue chunk k+1's matcher (main thread, ahead of chunk k's solves on
     the device), wait for chunk k's prep, start chunk k+1's prep on the
-    worker, enqueue chunk k's solves, then collect and write chunk k−1."""
+    worker, enqueue chunk k's solves (split over `mesh` when given), then
+    collect and write chunk k−1."""
     cfg, weights = deformer.cfg, deformer.weights
     prof = os.environ.get("ARAP_PROFILE")
     triples: list[str] = []
@@ -711,7 +719,7 @@ def _run_batched(flags, chunks, n_pairs, deformer, bgpool, device,
             if i + 1 < len(chunks):
                 fut = ex.submit(prep_chunk_finish, flags, chunks[i + 1],
                                 ha_next, weights, bgpool)
-            disp = dispatch_chunk_batched(prepped, cfg, weights, device)
+            disp = dispatch_chunk_batched(prepped, cfg, weights, device, mesh)
             t3 = time.perf_counter()
             if inflight is not None:
                 triples += collect_chunk_batched(inflight, cfg, weights,
@@ -778,29 +786,38 @@ def main_pipeline(
         matcher=flags.matcher,
     )
     flags.matcher = fw.matcher
-    _check_ported(flags)
     if fw.raster == "host" and flags.mode != "simple":
         # the exact host splat runs per pair; batched chunks rasterize on
         # the device
         print("ARAP_RASTER=host: forcing --mode simple (exact per-pair raster)")
         flags.mode = "simple"
+    _check_flags(flags)
     device = torch.device(flags.device)
     WRITE_ERRORS = 0
     rng = np.random.default_rng(flags.seed)
     bgpool = BackgroundPool(flags.bg_dir, rng)
-    deformer = ArapDeformer(fw.solver, weights=fw.weights, crop=True,
+    deformer = ArapDeformer(fw.solver, weights=fw.weights, crop=fw.crop,
                             raster=fw.raster, device=device)
 
     pairs = scan_pairs(flags)
     print(f"{len(pairs)} frame pairs to process")
+    mesh = None
+    if flags.mode == "sharded":
+        from ..parallel import make_mesh
+
+        # every visible card on the 'data' axis; the CPU under --device cpu
+        mesh = make_mesh(devices=[device] if device.type == "cpu" else None)
+        print(f"sharded over {mesh.shape['data']} devices")
+    batched = flags.mode in ("batched", "sharded")
     if flags.warmup and pairs:
         # --size is (w, h): the matcher warms only when the frame shape is
         # known up front, as in the JAX package
         prewarm(deformer.cfg, deformer.weights,
-                batched=flags.mode == "batched",
+                batched=batched,
                 frame_shape=(flags.size[1], flags.size[0]) if flags.size
                 else None,
-                match_downscale=flags.match_downscale, device=device)
+                match_downscale=flags.match_downscale, device=device,
+                mesh=mesh)
     begin = time.time()
 
     writer = None
@@ -809,10 +826,13 @@ def main_pipeline(
 
         writer = AsyncWriter(threads=max(1, int(fw.io_threads)))
     try:
-        if flags.mode == "batched":
-            chunks = plan_chunks(pairs, max(flags.narap, 1) * 2)
+        if batched:
+            chunk = max(flags.narap, 1) * 2
+            if mesh is not None:
+                chunk = max(chunk, mesh.shape["data"] * 2)
+            chunks = plan_chunks(pairs, chunk)
             triples = _run_batched(flags, chunks, len(pairs), deformer,
-                                   bgpool, device, writer)
+                                   bgpool, device, writer, mesh=mesh)
         else:
             triples = _run_simple(flags, pairs, deformer, bgpool, writer)
     finally:
@@ -885,7 +905,8 @@ def parse_args(argv=None) -> PipelineFlags:
     parser.add_argument("--mode", choices=["simple", "batched", "sharded"],
                         default="simple",
                         help="batched buckets segments across pairs; sharded "
-                        "is not yet ported")
+                        "also splits each solve chunk over every visible "
+                        "device")
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--shard", default=None, metavar="I/N",
                         help="multi-host split: this host processes pairs "

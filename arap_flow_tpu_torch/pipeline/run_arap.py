@@ -78,8 +78,13 @@ def main(argv=None):
     device = cli_device(a.device)
     fw = make_framework_config(a.schedule)
     chunk = a.chunk or len(frames)
+    failed = 0
     for i in range(0, len(frames), chunk):
-        deform_frames(frames[i : i + chunk], fw.solver, device=device, fw=fw)
+        failed += len(deform_frames(frames[i : i + chunk], fw.solver,
+                                    device=device, fw=fw))
+    if failed:
+        print(f"{failed} of {len(frames)} frames failed")
+        return 1
     return 0
 
 

@@ -36,6 +36,7 @@ class FrameworkConfig:
     weights: ArapWeights = field(default_factory=ArapWeights)
     raster: str = "device"  # device | host
     matcher: str = "native"  # native | binary | file
+    crop: bool = True  # bbox-crop per-segment solves (exact)
     async_io: bool = True  # native threaded writer for .flo / PNG products
     io_threads: int = 4
 

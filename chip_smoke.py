@@ -144,8 +144,36 @@ Phases, each reported on its own line; any failure exits non-zero:
        tools/pipeline_times.py --warmup compares fresh processes), the
        products byte-identical to phase 5's.
 
+10. the last modules (CUT = 2x2x40 where a line says so: plain torch at
+   19x8x400 and 480x854 would take minutes, and 10e/10f check routing and
+   bytes):
+   10a. ``para_gen --mode sharded`` on phase 5's tree: a mesh of the one
+        card, so the batched path; products byte-identical to phase 5's
+        (the JAX package's __graft_entry__.py:205 check); pcg_fixed and
+        zncc_search launched.
+   10b. ``BatchRunner(mesh=make_mesh(devices=[cuda:0, cuda:0]))`` on phase
+        3's tasks three times over (a chunk of 3 a bucket, split 2 + 1)
+        against the unsharded runner: max |dflow| < 1e-4 px, bitwise where
+        the PCG plans of B = 3, 2 and 1 agree (printed). Two mesh entries
+        on one card test the split and the gather, not scaling.
+   10c. ``solve_spatial`` at 480x854 at CUT over [cuda:0]*4 (space = 4)
+        and [cuda:0]: max |dx| and |dflow| < 5e-4 against ``solver.solve``
+        on the plain backend, < 0.05 px against the PCG kernel's route;
+        seconds beside solver.solve's.
+   10d. ``solve_pyramid`` on phase 3's first segment's solve box: card
+        against the CPU at CUT (max |dflow| < 1e-3 px); at 19x8x400,
+        fine_anneal = 1, the median rigid EPE, seconds and 160 pcg_fixed
+        launches, beside the flat solve of the same box.
+   10e. ``ARAP_RASTER=host`` deform on a list of phase 3's two frames at
+        CUT: 2 calls of the native splat, products byte-identical to
+        ``ArapDeformer(raster="host")``'s.
+   10f. ``run_tasks`` on phase 3's tasks and one full-frame fallback at
+        CUT: bitwise equal to a BatchRunner fed the same.
+
 The last line is the JSON device record; the line before it lists the
-kernels with their launch counts, errors, times and bounds.
+kernels with their launch counts (phase 5's pipeline plus phase 10's
+sharded pipeline, mesh runner, pyramid and run_tasks), errors, times and
+bounds.
 """
 
 from __future__ import annotations
@@ -2359,6 +2387,334 @@ def phase_warmup(smi: str, digest: dict, cold_pair: float) -> None:
         raise AssertionError(line)
 
 
+# Phase 10: the last modules. The cut schedule of the plain-torch row-split
+# solve (10c) and of the checks whose point is routing or bytes (10e, 10f):
+# plain torch at 19x8x400 and 480x854 would take minutes.
+CUT = (2, 2, 40)
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def cut_config(**kw):
+    from arap_flow_tpu_torch.ops.solver import SolverConfig
+
+    a, g, p = CUT
+    return SolverConfig(num_anneal=a, gn_iters=g, max_pcg_iters=p,
+                        pcg_iters=float(p), **kw)
+
+
+def phase_sharded_pipeline(smi: str, digest: dict, dev) -> dict:
+    """10a: ``para_gen --mode sharded`` on phase 5's tree, on a mesh of the
+    one card: products byte-identical to phase 5's ``--mode batched``
+    digest (the check of the JAX package's __graft_entry__.py:205).
+    Returns the run's launches."""
+    from arap_flow_tpu_torch.ops.solver import SolverConfig
+    from arap_flow_tpu_torch.pipeline import para_gen
+
+    with tempfile.TemporaryDirectory() as tmp:
+        inp, out = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        make_pipeline_tree(inp)
+        flags = para_gen.PipelineFlags(input=inp, output=out, multseg=True,
+                                       seed=0, mode="sharded",
+                                       device=str(dev))
+        zero_counts()
+        t0 = time.perf_counter()
+        lines = para_gen.main_pipeline(flags, solver_cfg=SolverConfig())
+        sync(dev)
+        secs = time.perf_counter() - t0
+        launches = read_counts()
+        same = tree_digest(out, lines) == digest
+    line = (f"phase 10a para_gen --mode sharded (a mesh of 1 device, the "
+            f"batched path on one card): {secs / (PIPE_FRAMES - 1):.3f} s a "
+            f"pair; launches pcg_fixed {launches['pcg_fixed']}, zncc_search "
+            f"{launches['zncc_search']}; products byte-identical to phase "
+            f"5's --mode batched: {same} ({smi})")
+    say(line)
+    if not (same and launches["pcg_fixed"] > 0
+            and launches["zncc_search"] > 0):
+        raise AssertionError(line)
+    return launches
+
+
+def phase_mesh_runner(smi: str, probs, tasks, dev) -> int:
+    """10b: BatchRunner on a mesh of two entries of the one card against
+    the unsharded runner, on phase 3's tasks three times over (a chunk of 3
+    a bucket, which the mesh splits 2 + 1). Returns the mesh run's
+    pcg_fixed launches."""
+    from arap_flow_tpu_torch.ops.pcg import card_plan
+    from arap_flow_tpu_torch.ops.solver import SolverConfig
+    from arap_flow_tpu_torch.parallel import make_mesh
+    from arap_flow_tpu_torch.pipeline.batch import BatchRunner
+
+    mesh = make_mesh(devices=[dev, dev])
+    many = [t.__class__(**{**vars(t), "pair_idx": k}) for k in range(3)
+            for t in tasks if t is not None]
+    runs = {}
+    for m in (None, mesh):
+        runner = BatchRunner(SolverConfig(), device=dev, mesh=m)
+        zero_counts()
+        t0 = time.perf_counter()
+        for t in many:
+            runner.add(t)
+        out = runner.finish()
+        sync(dev)
+        runs[m is not None] = (out, time.perf_counter() - t0,
+                               read_counts()["pcg_fixed"])
+    (ref, ref_s, ref_n), (got, got_s, got_n) = runs[False], runs[True]
+    shapes = sorted({t.ops.mask_u8.shape for t in many})
+    plans = {hw: [card_plan(B, *hw, False, dev) for B in (3, 2, 1)]
+             for hw in shapes}
+    same_plan = all(p[0] == p[1] == p[2] for p in plans.values())
+    d = max(float(np.abs(got[k].flow - ref[k].flow).max()) for k in ref)
+    bitwise = all(np.array_equal(got[k].flow, ref[k].flow)
+                  and np.array_equal(got[k].warped_rgb, ref[k].warped_rgb)
+                  and np.array_equal(got[k].warped_mask, ref[k].warped_mask)
+                  for k in ref)
+    plan_txt = "; ".join(
+        f"{h}x{w}: " + ", ".join(f"B={B} cluster {p.cluster} rows "
+                                 f"{p.rows_per_cta}"
+                                 for B, p in zip((3, 2, 1), ps))
+        for (h, w), ps in plans.items())
+    line = (f"phase 10b BatchRunner on make_mesh([cuda:0, cuda:0]) (two mesh "
+            f"entries on one card: this tests the split and the gather, not "
+            f"scaling across cards), {len(many)} tasks at 19x8x400: max "
+            f"|dflow| against the unsharded runner {d:.3g} px (gate < 1e-4), "
+            f"bitwise {bitwise} (required where the plans agree: "
+            f"{same_plan}); plans {plan_txt}; pcg_fixed launches {got_n} "
+            f"(unsharded {ref_n}); {got_s:.3f} s (unsharded {ref_s:.3f}) "
+            f"({smi})")
+    say(line)
+    if not (sorted(got) == sorted(ref) and d < 1e-4
+            and (bitwise or not same_plan) and got_n > 0):
+        raise AssertionError(line)
+    return got_n
+
+
+def phase_spatial(smi: str, probs, dev) -> None:
+    """10c: solve_spatial at the 480x854 frame (segment 0 of phase 3 on the
+    whole frame) over [cuda:0]*4 (space = 4) and [cuda:0] (space = 1),
+    against solver.solve on the card at the cut schedule: the plain backend
+    (the same arithmetic, summed in another order) within 5e-4, the PCG
+    kernel's route within 0.05 px (the full-solve bound)."""
+    import torch
+
+    from arap_flow_tpu_torch.io.constraints import add_border_pins
+    from arap_flow_tpu_torch.ops import energy as E
+    from arap_flow_tpu_torch.ops import solver as S
+    from arap_flow_tpu_torch.parallel import make_mesh, solve_spatial
+
+    _, mask, cons, _ = probs[0]
+    ops = E.build_operands(mask, add_border_pins(cons, FRAME_W, FRAME_H),
+                           device=dev)
+    batch = E.ArapOperands(**{f: v[None] for f, v in vars(ops).items()})
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        x, flow = fn()
+        sync(dev)
+        return x, flow, time.perf_counter() - t0
+
+    plain = cut_config(backend="plain")
+    x_p, f_p, s_p = timed(lambda: S.solve(batch, plain))
+    x_k, f_k, s_k = timed(lambda: S.solve(batch, cut_config()))
+    ok = True
+    parts = []
+    for space in (4, 1):
+        mesh = make_mesh(devices=[dev] * space, space=space)
+        x, flow, secs = timed(lambda: solve_spatial(batch, plain, mesh))
+        dx = float((x - x_p).abs().max())
+        df = float((flow - f_p).abs().max())
+        dk = float((flow - f_k).abs().max())
+        ok &= dx < 5e-4 and df < 5e-4 and dk < 0.05 and bool(
+            torch.isfinite(x).all())
+        parts.append(f"space={space}: {secs:.3f} s, max |dx| {dx:.3g}, max "
+                     f"|dflow| {df:.3g} against the plain solve, {dk:.3g} "
+                     f"against the kernel route")
+    line = (f"phase 10c solve_spatial {FRAME_H}x{FRAME_W} at the cut schedule "
+            f"{'x'.join(map(str, CUT))} (plain torch; 19x8x400 would take "
+            f"minutes): " + "; ".join(parts) + f"; solver.solve {s_p:.3f} s "
+            f"plain, {s_k:.3f} s on the PCG kernel (gates 5e-4 against the "
+            f"plain solve, 0.05 px against the kernel route) ({smi})")
+    say(line)
+    if not ok:
+        raise AssertionError(line)
+
+
+def segment_crop(prob, tasks_j):
+    """Phase 3's segment on its task's canonical solve box: (mask, pinned
+    constraints in the box, y0, x0), as make_task cuts it before any
+    transposition."""
+    from arap_flow_tpu_torch.io.constraints import add_border_pins
+
+    _, mask, cons, _ = prob
+    t = tasks_j
+    bh, bw = t.bucket
+    pinned = add_border_pins(cons, FRAME_W, FRAME_H).astype(np.int64)
+    sub = np.ascontiguousarray(mask[t.y0 : t.y0 + bh, t.x0 : t.x0 + bw])
+    shifted = pinned.copy()
+    shifted[:, [0, 2]] -= t.x0
+    shifted[:, [1, 3]] -= t.y0
+    inside = ((shifted[:, 0] >= 0) & (shifted[:, 0] < bw)
+              & (shifted[:, 1] >= 0) & (shifted[:, 1] < bh))
+    return sub, shifted[inside].astype(np.int32), t.y0, t.x0
+
+
+def phase_pyramid(smi: str, probs, tasks, dev) -> int:
+    """10d: solve_pyramid on phase 3's first segment (its solve box) on the
+    card: at the cut schedule against the port's CPU run of the same call
+    (< 1e-3 px), then at 19x8x400 with fine_anneal = 1: the median rigid
+    EPE, seconds and pcg_fixed launches (19x8 coarse + 1x8 fine = 160)
+    beside the flat solve of the same box. Returns the full run's
+    launches."""
+    import torch
+
+    from arap_flow_tpu_torch.ops import energy as E
+    from arap_flow_tpu_torch.ops import solver as S
+    from arap_flow_tpu_torch.ops.pyramid import solve_pyramid
+
+    sub, cons, y0, x0 = segment_crop(probs[0], tasks[0])
+    _, f_gpu = solve_pyramid(sub, cons, cut_config(), device=dev)
+    _, f_cpu = solve_pyramid(sub, cons, cut_config(), device="cpu")
+    d = float((f_gpu.cpu() - f_cpu).abs().max())
+
+    def epe(flow):
+        full = np.zeros((FRAME_H, FRAME_W, 2), np.float32)
+        full[y0 : y0 + sub.shape[0], x0 : x0 + sub.shape[1]] = (
+            flow.cpu().numpy().transpose(1, 2, 0))
+        return rigid_epe_median(full, probs[0][1], SEG_SHAPES[0][0],
+                                probs[0][3])
+
+    full = S.SolverConfig()
+    zero_counts()
+    t0 = time.perf_counter()
+    _, f_pyr = solve_pyramid(sub, cons, full, fine_anneal=1, device=dev)
+    sync(dev)
+    s_pyr = time.perf_counter() - t0
+    n_pyr = read_counts()["pcg_fixed"]
+    ops = E.build_operands(sub, cons, device=dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    _, f_flat = S.solve(ops, full)
+    sync(dev)
+    s_flat = time.perf_counter() - t0
+    n_flat = read_counts()["pcg_fixed"]
+    expect = full.num_anneal * full.gn_iters + full.gn_iters
+    obj = sub == 0
+    gap = (f_pyr - f_flat).abs().amax(0).cpu().numpy()[obj]
+    line = (f"phase 10d solve_pyramid {sub.shape[0]}x{sub.shape[1]} (phase 3's "
+            f"segment 0): card against the CPU at {'x'.join(map(str, CUT))} "
+            f"max |dflow| {d:.3g} px (gate < 1e-3); 19x8x400 fine_anneal=1: "
+            f"median rigid EPE {epe(f_pyr):.4f} px, {s_pyr:.3f} s, pcg_fixed "
+            f"launches {n_pyr} (expected {expect}); the flat solve: EPE "
+            f"{epe(f_flat):.4f} px, {s_flat:.3f} s, {n_flat} launches; "
+            f"|flow pyramid - flow flat| over the object: median "
+            f"{float(np.median(gap)):.3g}, max {float(gap.max()):.3g} px "
+            f"({smi})")
+    say(line)
+    if not (d < 1e-3 and n_pyr == expect and bool(torch.isfinite(f_pyr).all())):
+        raise AssertionError(line)
+    return n_pyr
+
+
+def phase_host_deform(smi: str, probs, dev) -> None:
+    """10e: ``ARAP_RASTER=host`` deform on a list of phase 3's two frames
+    (one shape) at the cut schedule: the native splat runs once a frame (2
+    calls) and the products are byte-identical to ArapDeformer(raster=
+    "host")'s, frame by frame."""
+    from arap_flow_tpu_torch.io import flo
+    from arap_flow_tpu_torch.io.image import save_image
+    from arap_flow_tpu_torch.models.arap import ArapDeformer
+    from arap_flow_tpu_torch.native import runtime
+    from arap_flow_tpu_torch.pipeline import deform_tool
+    from arap_flow_tpu_torch.utils.config import FrameworkConfig
+
+    cfg = cut_config()
+    calls = []
+    splat = runtime.rasterize_warp
+
+    def spy(*a, **k):
+        calls.append(1)
+        return splat(*a, **k)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        frames = []
+        for j, (rgb, mask, cons, _) in enumerate(probs):
+            paths = [os.path.join(tmp, f"{n}{j}.{e}") for n, e in (
+                ("rgb", "png"), ("mask", "png"), ("cstr", "txt"),
+                ("flow", "flo"), ("w", "png"), ("m", "png"))]
+            save_image(paths[0], rgb)
+            save_image(paths[1], mask)
+            with open(paths[2], "w") as f:
+                f.write(f"{len(cons)}\n" + "\n".join(
+                    " ".join(str(v) for v in row) for row in cons))
+            frames.append(deform_tool.FramePaths(*paths))
+        runtime.rasterize_warp = spy
+        try:
+            failed = deform_tool.deform_frames(
+                frames, cfg, device=dev,
+                fw=FrameworkConfig(solver=cfg, raster="host"))
+        finally:
+            runtime.rasterize_warp = splat
+        deformer = ArapDeformer(cfg, raster="host", device=dev)
+        same = []
+        for j, (rgb, mask, cons, _) in enumerate(probs):
+            res = deformer.deform(rgb, mask, cons)
+            ref = [os.path.join(tmp, f"ref{j}.{e}") for e in
+                   ("flo", "w.png", "m.png")]
+            flo.flow_write(ref[0], res.flow)
+            save_image(ref[1], res.warped_rgb)
+            save_image(ref[2], res.warped_mask)
+            fr = frames[j]
+            same.append(all(_read_bytes(a) == _read_bytes(b) for a, b in zip(
+                (fr.out_flo, fr.out_rgb, fr.out_mask), ref)))
+    line = (f"phase 10e ARAP_RASTER=host deform on a {len(probs)}-frame "
+            f"{FRAME_W}x{FRAME_H} list at {'x'.join(map(str, CUT))}: "
+            f"rasterize_warp calls {len(calls)} (expected {len(probs)}), "
+            f"products byte-identical to ArapDeformer(raster='host') frame "
+            f"by frame: {same}; failed frames {len(failed)} ({smi})")
+    say(line)
+    if not (len(calls) == len(probs) and all(same) and not failed):
+        raise AssertionError(line)
+
+
+def phase_run_tasks(smi: str, probs, tasks, dev) -> int:
+    """10f: run_tasks on phase 3's tasks plus segment 0 again as a
+    full-frame fallback, at the cut schedule: bitwise equal to a
+    BatchRunner fed the same. Returns run_tasks' pcg_fixed launches."""
+    from arap_flow_tpu_torch.io.constraints import add_border_pins
+    from arap_flow_tpu_torch.pipeline.batch import BatchRunner, run_tasks
+
+    cfg = cut_config()
+    rgb, mask, cons, _ = probs[0]
+    fallback = (1, 0, rgb, mask, add_border_pins(cons, FRAME_W, FRAME_H))
+    live = [t for t in tasks if t is not None]
+    zero_counts()
+    got = run_tasks(live, [fallback], cfg, device=dev)
+    n = read_counts()["pcg_fixed"]
+    runner = BatchRunner(cfg, device=dev)
+    for t in live:
+        runner.add(t)
+    runner.add_fallback(*fallback)
+    ref = runner.finish()
+    same = sorted(got) == sorted(ref) and all(
+        np.array_equal(got[k].flow, ref[k].flow)
+        and np.array_equal(got[k].warped_rgb, ref[k].warped_rgb)
+        and np.array_equal(got[k].warped_mask, ref[k].warped_mask)
+        for k in ref)
+    line = (f"phase 10f run_tasks: {len(live)} tasks and 1 full-frame "
+            f"fallback at {'x'.join(map(str, CUT))}: bitwise equal to "
+            f"BatchRunner's products: {same}; pcg_fixed launches {n} ({smi})")
+    say(line)
+    if not (same and n > 0 and (1, 0) in got):
+        raise AssertionError(line)
+    return n
+
+
 def main() -> int:
     import torch
 
@@ -2414,6 +2770,20 @@ def main() -> int:
     phase_warmup(smi, pipe_digest, pipe_cold)
     say(f"phase 9 seconds: {time.perf_counter() - t0:.3f}; pcg_fixed launches"
         f" 9a {opt_launches['pcg_fixed']}, 9e {inst_launches}")
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    shard_launches = phase_sharded_pipeline(smi, pipe_digest, dev)
+    mesh_launches = phase_mesh_runner(smi, probs, tasks, dev)
+    phase_spatial(smi, probs, dev)
+    pyr_launches = phase_pyramid(smi, probs, tasks, dev)
+    phase_host_deform(smi, probs, dev)
+    tasks_launches = phase_run_tasks(smi, probs, tasks, dev)
+    say(f"phase 10 seconds: {time.perf_counter() - t0:.3f}")
+    # the kernels' launches on the main paths: phase 5's pipeline and phase
+    # 10's sharded pipeline, mesh runner, pyramid and run_tasks
+    pcg_launches = (launches["pcg_fixed"] + shard_launches["pcg_fixed"]
+                    + mesh_launches + pyr_launches + tasks_launches)
+    zncc_launches = launches["zncc_search"] + shard_launches["zncc_search"]
     p_bound, p_by = pcg_bound(*PIPE_PCG_SHAPE)
     f_bound, f_by = fused_bound(*PIPE_PCG_SHAPE, *FUSED_UNIT)
     pcg_row = {"route": "cuda", "source": "arap_flow_tpu_torch/csrc/pcg.cu",
@@ -2423,7 +2793,7 @@ def main() -> int:
         "name": "pcg_fixed", **pcg_row,
         "replaces": "arap_flow_tpu/ops/pallas_pcg.py:247, "
                     "arap_flow_tpu/ops/pallas_pcg.py:516",
-        "launches": launches["pcg_fixed"], "max_abs_err": max_err, "ms": ms,
+        "launches": pcg_launches, "max_abs_err": max_err, "ms": ms,
     }, {
         "name": "pcg_fixed_tall", **pcg_row,
         "replaces": "arap_flow_tpu/ops/pallas_pcg.py:377, "
@@ -2440,7 +2810,7 @@ def main() -> int:
         "name": "zncc_search", "route": "cuda",
         "source": "arap_flow_tpu_torch/csrc/zncc.cu",
         "replaces": "arap_flow_tpu/ops/pallas_match.py:125",
-        "launches": launches["zncc_search"], "max_abs_err": z_err,
+        "launches": zncc_launches, "max_abs_err": z_err,
         "ms": z_ms, "plain_ms": z_plain, "bound_ms": z_bound,
         "bound_by": z_by, "library_ms": None,
     }]}))

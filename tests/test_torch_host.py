@@ -161,6 +161,10 @@ def test_max_chunk_for_cap():
     assert TB.max_chunk_for((224, 384)) == TB.MAX_CHUNK == 24
     assert TB.max_chunk_for((512, 896)) >= 1
     assert TB.max_chunk_for((100000, 100000)) == 1
+    # the budget is per device: a chunk split over n_data devices (--mode
+    # sharded) is n_data times as large, as JAX's max_chunk_for(bucket, n)
+    for bucket in ((224, 384), (512, 896), (100000, 100000)):
+        assert TB.max_chunk_for(bucket, 4) == 4 * TB.max_chunk_for(bucket)
 
 
 _FORBIDDEN = re.compile(

@@ -4,8 +4,9 @@ PIL, which the JAX package uses for both.
 - Decode: bitwise equal to ``np.array(Image.open(p).convert("RGB"))`` for
   4:4:4, 4:2:2, 4:2:0 and grayscale files at qualities 50/90/98, at odd
   sizes (1×1, 17×23, 23×17, 2×40, 481×855) and with restart markers; what
-  it does not decode (progressive, CMYK, 12-bit, other sampling factors,
-  a truncated file) raises ValueError.
+  it does not decode (CMYK, 12-bit, other sampling factors, a truncated
+  baseline or progressive file) raises ValueError. Progressive decodes
+  are held to PIL in tests/test_torch_progressive.py.
 - Encode: PIL's decode of a port-encoded file equals the port's decode;
   the quantization tables are libjpeg's at the same quality, and the mean
   error within 5% of libjpeg's own encode.
@@ -90,7 +91,8 @@ def test_unsupported_files_raise_value_error(tmp_path):
     twelve_bit = _patched(base, b"\xff\xc0", 4, 12)  # sample precision
     sampling_440 = _patched(base, b"\xff\xc0", 11, 0x12)  # Y h1v2
     truncated = base[: len(base) // 2]
-    cases = {"progressive": progressive, "CMYK": cmyk.getvalue(),
+    cases = {"truncated progressive": progressive[: len(progressive) // 2],
+             "CMYK": cmyk.getvalue(),
              "12-bit": twelve_bit, "4:4:0": sampling_440,
              "truncated": truncated, "not a JPEG": b"\xff\xd8garbage"}
     for name, data in cases.items():

@@ -66,7 +66,7 @@ def _tree(root, n_frames):
 
 
 def serial_batched(flags, chunks, n_pairs, deformer, bgpool, device,
-                   writer):
+                   writer, mesh=None):
     """The batched loop without overlap, in uniform chunks of 2·narap
     pairs: each chunk matched, prepped, solved, collected and written
     before the next starts."""
@@ -78,7 +78,8 @@ def serial_batched(flags, chunks, n_pairs, deformer, bgpool, device,
         ch = pairs[i : i + size]
         handles = TP.prep_chunk_dispatch_match(flags, ch)
         prepped = TP.prep_chunk_finish(flags, ch, handles, weights, bgpool)
-        inflight = TP.dispatch_chunk_batched(prepped, cfg, weights, device)
+        inflight = TP.dispatch_chunk_batched(prepped, cfg, weights, device,
+                                             mesh)
         triples += TP.collect_chunk_batched(inflight, cfg, weights, device,
                                             writer)
     return triples

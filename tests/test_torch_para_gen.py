@@ -12,6 +12,7 @@ stand-in matcher script with the reference's shell contract, as
 tests/test_matcher_binary.py does for the JAX package.
 """
 
+import dataclasses
 import os
 import os.path as osp
 import stat
@@ -252,21 +253,88 @@ def test_parse_args_equal():
         TP.parse_args(["--input", "a", "--output", "b", "--fd", "0"])
 
 
-@pytest.mark.parametrize("flags", [dict(mode="sharded")])
-def test_unported_options_raise(tmp_path, flags):
+@pytest.mark.parametrize("flags,error", [
+    (dict(mode="bogus"), ValueError),
+    (dict(matcher="bogus"), ValueError),
+    (dict(matcher="binary", dm_bin="/nonexistent/dm"), FileNotFoundError)])
+def test_unported_options_raise(tmp_path, flags, error):
+    """Every mode is ported (--mode sharded included); what is left to
+    refuse is a mode or matcher that does not exist."""
     f = TP.PipelineFlags(input=str(tmp_path), output=str(tmp_path / "o"),
                          device="cpu", **flags)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(error):
         TP.main_pipeline(f, solver_cfg=TConfig(**SHORT))
 
 
 def test_cli_registers_pipeline_commands(tmp_path):
     for name in ("para_gen", "generate", "run_arap", "run_warp"):
         assert name in TMain.COMMANDS
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(SystemExit):  # argparse refuses an unknown mode
         TMain.main(["para_gen", "--input", str(tmp_path), "--output",
-                    str(tmp_path / "o"), "--mode", "sharded", "--device",
+                    str(tmp_path / "o"), "--mode", "bogus", "--device",
                     "cpu"])
+
+
+def test_sharded_mode_writes_the_batched_products(runs, tmp_path, capsys):
+    """--mode sharded --device cpu (a mesh of the one CPU) writes products
+    byte-identical to --mode batched's, and says how many devices it
+    shards over."""
+    inp, out = runs
+    to, ref = out[("torch", "batched")]
+    lines = TP.main_pipeline(
+        TP.PipelineFlags(input=inp, output=str(tmp_path), multseg=True,
+                         seed=0, mode="sharded", device="cpu"),
+        solver_cfg=TConfig(**SHORT))
+    assert "sharded over 1 devices" in capsys.readouterr().out
+    assert [osp.relpath(p, str(tmp_path)) for ln in lines
+            for p in ln.split(" ")] == [osp.relpath(p, to) for ln in ref
+                                        for p in ln.split(" ")]
+    n = 0
+    for root, _, files in os.walk(to):
+        for f in files:
+            if f == "all_files.list":
+                continue
+            a = osp.join(root, f)
+            with open(a, "rb") as fa, open(
+                    osp.join(str(tmp_path), osp.relpath(a, to)), "rb") as fb:
+                assert fa.read() == fb.read(), a
+            n += 1
+    assert n >= 2 * 6
+
+
+def test_host_raster_switches_sharded_to_simple(tmp_path, monkeypatch,
+                                                capsys):
+    """ARAP_RASTER=host applies before the mode check, as in the JAX
+    package: --mode sharded becomes simple instead of raising."""
+    monkeypatch.setenv("ARAP_RASTER", "host")
+    f = TP.PipelineFlags(input=str(tmp_path), output=str(tmp_path / "o"),
+                         device="cpu", mode="sharded")
+    assert TP.main_pipeline(f, solver_cfg=TConfig(**SHORT)) == []
+    assert f.mode == "simple"
+    assert "forcing --mode simple" in capsys.readouterr().out
+
+
+def test_main_pipeline_passes_framework_crop(tmp_path, monkeypatch):
+    """main_pipeline builds its deformer with FrameworkConfig.crop, as the
+    JAX package's does (utils/config.py:34, para_gen.py:833)."""
+    from arap_flow_tpu_torch.utils.config import FrameworkConfig
+
+    seen = []
+
+    class Spy(TP.ArapDeformer):
+        def __init__(self, *a, **k):
+            seen.append(k.get("crop"))
+            super().__init__(*a, **k)
+
+    monkeypatch.setattr(TP, "ArapDeformer", Spy)
+    flags = dict(input=str(tmp_path), output=str(tmp_path / "o"),
+                 device="cpu")
+    TP.main_pipeline(TP.PipelineFlags(**flags), solver_cfg=TConfig(**SHORT))
+    real = FrameworkConfig.from_env
+    monkeypatch.setattr(TP.FrameworkConfig, "from_env", classmethod(
+        lambda cls, **k: dataclasses.replace(real(**k), crop=False)))
+    TP.main_pipeline(TP.PipelineFlags(**flags), solver_cfg=TConfig(**SHORT))
+    assert seen == [True, False]
 
 
 def test_run_warp_and_run_arap_scans_equal(runs, tmp_path):

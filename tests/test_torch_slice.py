@@ -323,3 +323,101 @@ def test_framework_config_from_env_matches_jax(monkeypatch):
     monkeypatch.setenv("ARAP_BACKEND", "pallas")  # a JAX name: ignored
     assert FrameworkConfig.from_env().solver.backend == "auto"
     assert TD.make_config("fast").q_tolerance == 1e-4
+
+
+def test_run_tasks_fallback_respects_weights():
+    """tests/test_pipeline_batched.py's test_fallback_respects_weights: an
+    oversized segment (no bucket fits) falls back to a full-frame solve
+    inside run_tasks, with the caller's weights, not the defaults."""
+    Hs, Ws = 48, 64
+    rng = np.random.default_rng(3)
+    rgb = rng.integers(0, 255, (Hs, Ws, 3)).astype(np.uint8)
+    mask = np.full((Hs, Ws), 255, np.uint8)
+    mask[4:44, 4:60] = 0  # nearly the whole frame: no bucket fits
+    cons = np.array([[20, 20, 24, 23], [40, 30, 44, 33]], np.int32)
+    weights = TE.ArapWeights(w_fit=10.0, w_reg=0.5)
+    cfg = TConfig(**SHORT)
+    assert TB.make_task(0, 0, rgb, mask, cons, weights) is None
+    pinned = add_border_pins(cons, Ws, Hs)
+    out = TB.run_tasks([], [(0, 0, rgb, mask, pinned)], cfg, device="cpu",
+                       weights=weights)[(0, 0)]
+    ref = TA.ArapDeformer(cfg, weights, device="cpu").deform(rgb, mask, cons)
+    np.testing.assert_allclose(out.flow, ref.flow, atol=1e-5)
+    # the weights matter: the default weights give another flow
+    ref_default = TA.ArapDeformer(cfg, device="cpu").deform(rgb, mask, cons)
+    assert np.abs(ref.flow - ref_default.flow).max() > 0.05
+    # and JAX's run_tasks on the same inputs
+    jout = JB.run_tasks([], [(0, 0, rgb, mask, pinned)],
+                        JConfig(**SHORT, backend="xla"),
+                        weights=JE.ArapWeights(w_fit=10.0, w_reg=0.5))[(0, 0)]
+    assert np.abs(out.flow - jout.flow).max() < FLOW_TOL
+
+
+def _list_rows(tmp_path, frames, tag):
+    return [r + [str(tmp_path / f"{tag}{i}.{e}") for e in ("flo", "w.png",
+                                                             "m.png")]
+            for i, r in enumerate(frames)]
+
+
+def test_deform_host_raster_splats_every_frame(tmp_path, monkeypatch):
+    """ARAP_RASTER=host on a list of two same-shape frames: each frame runs
+    the per-frame deformer's exact host splat (two calls of the native
+    rasterizer), with ArapDeformer(raster="host")'s products."""
+    from arap_flow_tpu_torch.native import runtime as TR
+
+    calls = []
+    splat = TR.rasterize_warp
+
+    def spy(*a, **k):
+        calls.append(a[0].shape)
+        return splat(*a, **k)
+
+    monkeypatch.setattr(TR, "rasterize_warp", spy)
+    rows = _list_rows(tmp_path, _write_tree(tmp_path, n=2), "h")
+    fw = FrameworkConfig(solver=TConfig(**SHORT), raster="host")
+    failed = TD.deform_frames([TD.FramePaths(*r) for r in rows], fw.solver,
+                              device="cpu", fw=fw)
+    assert failed == [] and len(calls) == 2
+    calls.clear()
+    deformer = TA.ArapDeformer(fw.solver, raster="host", device="cpu")
+    for r in rows:
+        ref = deformer.deform(load_rgb(r[0]), load_mask(r[1]),
+                              TD.read_constraint_file(r[2]))
+        u, v = TF.flow_read(r[3])
+        np.testing.assert_array_equal(np.dstack([u, v]), ref.flow)
+        np.testing.assert_array_equal(load_rgb(r[4]), ref.warped_rgb)
+        np.testing.assert_array_equal(load_mask(r[5]), ref.warped_mask)
+    assert len(calls) == 2
+
+
+def test_deform_list_isolates_a_bad_frame(tmp_path, capsys, monkeypatch):
+    """A chunk holding one frame whose constraint file is missing fails as a
+    batch; it is retried frame by frame, the good frames are written (with
+    the per-frame deformer's products) and the bad one is reported."""
+    frames = _write_tree(tmp_path, n=3)
+    frames[1][2] = str(tmp_path / "missing.txt")
+    rows = _list_rows(tmp_path, frames, "b")
+    cfg = TConfig(**SHORT)
+    failed = TD.deform_frames([TD.FramePaths(*r) for r in rows], cfg,
+                              device="cpu")
+    assert [f.rgb for f in failed] == [rows[1][0]]
+    out = capsys.readouterr().out
+    assert "retrying frame by frame" in out and "frame failed" in out
+    deformer = TA.ArapDeformer(cfg, device="cpu")
+    for i in (0, 2):
+        ref = deformer.deform(load_rgb(rows[i][0]), load_mask(rows[i][1]),
+                              TD.read_constraint_file(rows[i][2]))
+        u, v = TF.flow_read(rows[i][3])
+        np.testing.assert_array_equal(np.dstack([u, v]), ref.flow)
+    assert not (tmp_path / "b1.flo").exists()
+    monkeypatch.setattr(TD, "make_config", lambda s: cfg)
+    with pytest.raises(SystemExit, match="1 of 3 frames failed"):
+        lst = tmp_path / "bad.txt"
+        lst.write_text("\n".join(" ".join(r) for r in rows) + "\n")
+        TD.main([str(lst), "--device", "cpu"])
+
+
+def test_framework_config_crop_default_matches_jax():
+    """tests/test_config_utils.py: crop is on by default."""
+    assert FrameworkConfig().crop is True
+    assert JFramework().crop is True
