@@ -1,7 +1,7 @@
 """Image IO and mask conventions (io/image.py of the JAX package).
 
 PNG files go through a codec of numpy and the standard library's ``zlib``,
-and baseline JPEG files through the native host library's C++ codec
+and JPEG files through the native host library's C++ codec
 (``native/runtime.py``), so frames, masks and backgrounds load and save
 where PIL is not installed:
 
@@ -9,17 +9,24 @@ where PIL is not installed:
   palette images of 1, 2, 4 or 8 bits, with all five row filters; alpha is
   dropped. PNG write: 8-bit gray and RGB, filter "up" on every row, zlib
   level 1.
-- JPEG read: baseline and progressive files with 1 or 3 components, 4:4:4,
-  4:2:2 or 4:2:0, decoded bitwise equal to PIL (libjpeg-turbo's defaults);
-  arithmetic-coded, 12-bit and CMYK files, and progressive ones whose scans
-  leave low-frequency coefficients unrefined (which libjpeg smooths), raise
-  ValueError. JPEG write:
-  baseline JFIF, 4:2:0, at ``quality`` (PIL's default 75).
+- JPEG read: baseline and progressive Huffman-coded files of 8-bit
+  samples with 1, 3 or 4 components and any sampling factors libjpeg
+  takes (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, h4v2, ...), decoded bitwise
+  equal to PIL (libjpeg-turbo's defaults). Four-component files (CMYK,
+  YCCK) decode to what ``np.array(Image.open(f))`` gives, PIL's inverted
+  CMYK; ``load_rgb`` converts them as PIL's ``convert("RGB")`` does and
+  ``load_mask`` keeps channel 0. JPEG write: baseline JFIF, 4:2:0, at
+  ``quality`` (PIL's default 75).
 
 The format is read from the file's first bytes; a file named .png or .jpg
-that is neither raises ValueError. Any other file (16-bit or interlaced
-PNGs, other formats) goes through PIL, imported where it is needed; where
-PIL is missing that raises an ImportError that names it.
+that is neither raises ValueError, and so does a broken PNG or JPEG
+(truncated data, bad tables). Any other file goes through PIL, imported
+where it is needed: 16-bit or interlaced PNGs, JPEGs of a variant the
+native decoder does not implement (arithmetic coding, 12-bit samples,
+lossless, a DNL-defined height, a progressive file whose scans leave
+low-frequency coefficients unrefined, which libjpeg smooths), other
+formats. Where PIL is missing that raises an ImportError that names PIL
+and the variant.
 
 Mask conventions: annotation masks use 0 = background, nonzero = segment
 id; ARAP solver masks use 0 = solve region, ARAP_BG = 255 = excluded.
@@ -40,15 +47,18 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
 
 
-def pil_image():
-    """PIL's Image module, or an ImportError that says what needs it."""
+def pil_image(reason: str = "this image operation"):
+    """PIL's Image module, or an ImportError that says what needs it
+    (`reason`: the file or variant that PIL has to read)."""
     try:
         from PIL import Image
     except ImportError as e:
         raise ImportError(
-            "this image operation needs PIL (Pillow), which is not "
-            "installed: without it only PNG files (8-bit gray, RGB, RGBA and "
-            "palette) and baseline JPEG files are read and written") from e
+            f"{reason} needs PIL (Pillow), which is not installed: without "
+            "it only PNG files (8-bit gray, RGB, RGBA and palette) and "
+            "Huffman-coded 8-bit JPEG files (baseline and progressive, 1, 3 "
+            "or 4 components) are read, and PNG and baseline JPEG files "
+            "written") from e
     return Image
 
 
@@ -196,30 +206,43 @@ def png_encode(arr: np.ndarray, level: int = 1) -> bytes:
 
 def _decode_file(path):
     """("png", png_decode result) or ("jpeg", pixels) from the file's first
-    bytes (a .png or .jpg name that is neither raises ValueError), or None
-    where PIL has to read it."""
+    bytes (a .png or .jpg name that is neither raises ValueError, as does a
+    broken file), or ("pil", what PIL has to read) for the rest."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == _SIGNATURE or (_is_png(path) and data[:2] != _JPEG_SOI):
         try:
             return "png", png_decode(data)
-        except _Unsupported:
-            return None
+        except _Unsupported as e:
+            return "pil", f"reading {path} (a PNG of {e})"
     if data[:2] == _JPEG_SOI or _is_jpeg(path):
-        return "jpeg", native.jpeg_decode(data)
-    return None
+        try:
+            return "jpeg", native.jpeg_decode(data)
+        except native.JpegUnsupported as e:
+            return "pil", f"reading {path} ({e})"
+    return "pil", f"reading {path} (neither PNG nor JPEG)"
+
+
+def _cmyk_to_rgb(px: np.ndarray) -> np.ndarray:
+    """PIL's CMYK -> RGB conversion (Convert.c, cmyk2rgb), bitwise: each
+    channel nk - c·nk/255 with nk = 255 - k, in PIL's integer rounding."""
+    c = px[..., :3].astype(np.int32)
+    nk = 255 - px[..., 3:].astype(np.int32)
+    t = c * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
 def load_rgb(path) -> np.ndarray:
     """Load an RGB image as (H, W, 3) uint8 (alpha dropped, gray replicated,
     palette expanded)."""
-    dec = _decode_file(path)
-    if dec is None:
-        with pil_image().open(path) as im:
+    kind, got = _decode_file(path)
+    if kind == "pil":
+        with pil_image(got).open(path) as im:
             return np.array(im if im.mode == "RGB" else im.convert("RGB"))
-    kind, got = dec
     if kind == "jpeg":
-        return got if got.ndim == 3 else np.repeat(got[..., None], 3, axis=2)
+        if got.ndim == 2:
+            return np.repeat(got[..., None], 3, axis=2)
+        return _cmyk_to_rgb(got) if got.shape[2] == 4 else got
     px, ctype, palette = got
     if ctype == 3:
         return palette[px]
@@ -232,12 +255,11 @@ def load_rgb(path) -> np.ndarray:
 def load_mask(path) -> np.ndarray:
     """Load a mask as (H, W): palette indices and gray values kept, channel
     0 of a colour image."""
-    dec = _decode_file(path)
-    if dec is None:
-        with pil_image().open(path) as im:
+    kind, got = _decode_file(path)
+    if kind == "pil":
+        with pil_image(got).open(path) as im:
             arr = np.array(im)
         return arr[:, :, 0] if arr.ndim == 3 else arr
-    kind, got = dec
     px = got if kind == "jpeg" else got[0]
     return np.ascontiguousarray(px[:, :, 0]) if px.ndim == 3 else px
 

@@ -10,8 +10,11 @@ The library (``src/arap_native.cpp``) is built with g++ on first use by
 - ``AsyncWriter``: a pool of writer threads for .flo fields and encoded
   images; each submit copies its data;
 - ``jpeg_info`` / ``jpeg_decode`` / ``jpeg_encode``: the JPEG codec behind
-  ``io.image`` (baseline and progressive decode, baseline encode). A file
-  it does not decode raises ValueError.
+  ``io.image`` (baseline and progressive decode of 1, 3 or 4 components,
+  baseline encode). A file it does not decode raises ValueError: a broken
+  one plain ValueError, one of a variant it does not implement (arithmetic
+  coding, 12-bit samples, lossless, ...) ``JpegUnsupported``, a subclass,
+  which ``io.image`` hands to PIL.
 """
 
 from __future__ import annotations
@@ -121,8 +124,14 @@ class AsyncWriter:
         self.close()
 
 
-def _jpeg_error(lib) -> ValueError:
-    return ValueError(lib.jpeg_last_error().decode(errors="replace"))
+class JpegUnsupported(ValueError):
+    """A JPEG of a variant the native decoder does not implement; libjpeg
+    (PIL) may read it."""
+
+
+def _jpeg_error(lib, rc: int = -1) -> ValueError:
+    msg = lib.jpeg_last_error().decode(errors="replace")
+    return JpegUnsupported(msg) if rc == -2 else ValueError(msg)
 
 
 def jpeg_info(data: bytes) -> tuple[int, int, int]:
@@ -137,13 +146,15 @@ def jpeg_info(data: bytes) -> tuple[int, int, int]:
 
 def jpeg_decode(data: bytes) -> np.ndarray:
     """Decode a baseline or progressive JPEG: (H, W) uint8 for one
-    component, (H, W, 3) RGB for three, equal to libjpeg-turbo's default
-    decode (PIL's)."""
+    component, (H, W, 3) RGB for three, (H, W, 4) CMYK for four, inverted
+    as PIL's "CMYK;I" raw mode gives it; each equal to
+    ``np.array(Image.open(f))`` (libjpeg-turbo's default decode)."""
     lib = _lib()
     H, W, C = jpeg_info(data)
-    out = np.empty((H, W) if C == 1 else (H, W, 3), np.uint8)
-    if lib.jpeg_decode(data, len(data), _ptr(out), H, W, C) != 0:
-        raise _jpeg_error(lib)
+    out = np.empty((H, W) if C == 1 else (H, W, C), np.uint8)
+    rc = lib.jpeg_decode(data, len(data), _ptr(out), H, W, C)
+    if rc != 0:
+        raise _jpeg_error(lib, rc)
     return out
 
 

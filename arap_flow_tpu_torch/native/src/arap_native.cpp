@@ -12,20 +12,31 @@
 // - .flo layout ('PIEH', int32 w/h, interleaved row-major float32 u,v).
 //
 // The JPEG decoder reads baseline and progressive files (SOF0/SOF1 and
-// SOF2, 8-bit samples, Huffman coding, 1 or 3 components, sampling h1v1,
-// h2v1 or h2v2, restart markers) and reproduces libjpeg-turbo's default
-// decode, which PIL uses: the ISLOW integer IDCT (jidctint.c, CONST_BITS
-// 13, PASS1_BITS 2), fancy (triangle) upsampling of the chroma (jdsample.c
-// h2v1/h2v2_fancy_upsample, plain replication where the chroma is at most
-// 2 samples wide) and the fixed-point YCbCr->RGB tables (jdcolor.c). A
-// progressive file's scans (DC first and refinement, AC spectral selection
-// with EOB runs, AC successive approximation: ITU T.81 G.1.2, jdphuff.c)
-// build the coefficient planes, which then take the same IDCT and colour
-// path. libjpeg's block smoothing (jdcoefct.c) runs only while some of the
-// first AC coefficients are left unrefined at the end of the file; such a
-// file (a scan script that stops early) is refused, as is anything else
-// (arithmetic coding, 12-bit, CMYK, other sampling factors), with an error
-// message. The encoder writes baseline JFIF files: RGB->YCbCr in
+// SOF2, 8-bit samples, Huffman coding, 1, 3 or 4 components, any sampling
+// factors libjpeg's upsampler takes, restart markers) and reproduces
+// libjpeg-turbo's default decode, which PIL uses: the ISLOW integer IDCT
+// (jidctint.c, CONST_BITS 13, PASS1_BITS 2), the upsampler jdsample.c's
+// jinit_upsampler picks for each component (h2v1/h2v2_fancy_upsample where
+// the component is wider than 2 samples, plain replication where it is
+// not, h1v2_fancy_upsample with context rows, int_upsample's replication
+// for other integral ratios such as 4:1:1) and the fixed-point YCbCr->RGB
+// tables (jdcolor.c). Four components are CMYK (Adobe transform 0, or no
+// Adobe marker) or YCCK (any other transform: ycck_cmyk_convert), written
+// inverted as PIL's "CMYK;I" raw mode gives them. A progressive file's
+// scans (DC first and refinement, AC spectral selection with EOB runs, AC
+// successive approximation: ITU T.81 G.1.2, jdphuff.c) build the
+// coefficient planes, which then take the same IDCT and colour path.
+// libjpeg's block smoothing (jdcoefct.c) runs only while some of the first
+// AC coefficients are left unrefined at the end of the file.
+//
+// Refusals come in two kinds. A file of a process or variant this decoder
+// does not implement (arithmetic coding, 12-bit samples, lossless or
+// hierarchical processes, a DNL-defined height, a progressive file left
+// unrefined, a component count other than 1, 3 or 4) is "unsupported"
+// (jpeg_decode returns -2): libjpeg may read it. A file that is broken
+// (truncated data, bad tables or headers, sampling factors libjpeg refuses
+// too) is "corrupt" (-1). Both set an error message.
+// The encoder writes baseline JFIF files: RGB->YCbCr in
 // fixed point, 4:2:0 chroma, the islow forward DCT (jfdctint.c), the
 // quality-scaled Annex K quantization tables and the Annex K Huffman tables.
 //
@@ -316,9 +327,15 @@ namespace jpg {
 
 struct Error {
   std::string msg;
+  bool unsupported;  // a variant libjpeg may read, not a broken file
 };
 
-[[noreturn]] void fail(const std::string& msg) { throw Error{msg}; }
+// a broken file
+[[noreturn]] void fail(const std::string& msg) { throw Error{msg, false}; }
+// a file of a variant this decoder does not implement
+[[noreturn]] void refuse(const std::string& msg) {
+  throw Error{msg, true};
+}
 
 thread_local std::string t_error;
 thread_local std::vector<uint8_t> t_encoded;
@@ -638,7 +655,7 @@ struct Decoder {
   const uint8_t* p;
   int H = 0, W = 0, nc = 0;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
-  Component comp[3];
+  Component comp[4];
   uint16_t qt[4][64];
   bool qt_set[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
@@ -677,16 +694,21 @@ struct Decoder {
     H = u16();
     W = u16();
     nc = u8();
-    if (marker != 0xC0 && marker != 0xC1 && marker != 0xC2)
-      fail("JPEG process is neither baseline nor progressive Huffman "
-           "(lossless, hierarchical or arithmetic coding) and is not "
-           "supported");
+    if (marker >= 0xC9)
+      refuse("JPEG with arithmetic coding is not supported");
+    if (marker == 0xC3)
+      refuse("lossless JPEG is not supported");
+    if (marker >= 0xC5)
+      refuse("hierarchical JPEG is not supported");
     progressive = marker == 0xC2;
-    if (precision != 8) fail("JPEG with 12-bit samples is not supported");
-    if (H <= 0 || W <= 0) fail("JPEG with a zero or DNL-defined size");
-    if (nc != 1 && nc != 3)
-      fail("JPEG with " + std::to_string(nc) +
-           " components (CMYK?) is not supported");
+    if (precision != 8)
+      refuse("JPEG with " + std::to_string(precision) +
+             "-bit samples is not supported");
+    if (H == 0) refuse("JPEG with a DNL-defined height is not supported");
+    if (W <= 0) fail("JPEG with a zero width");
+    if (nc != 1 && nc != 3 && nc != 4)
+      refuse("JPEG with " + std::to_string(nc) +
+             " components is not supported");
     if (len != 8 + 3 * nc) fail("bad JPEG frame header length");
     for (int i = 0; i < nc; ++i) {
       Component& c = comp[i];
@@ -698,23 +720,16 @@ struct Decoder {
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
         fail("bad JPEG component parameters");
     }
-    if (nc == 1) {
-      comp[0].h = comp[0].v = 1;  // a lone component is never subsampled
-    } else {
-      bool chroma_full = comp[1].h == 1 && comp[1].v == 1 && comp[2].h == 1 &&
-                         comp[2].v == 1;
-      int yh = comp[0].h, yv = comp[0].v;
-      bool ok = chroma_full && ((yh == 1 && yv == 1) || (yh == 2 && yv == 1) ||
-                                (yh == 2 && yv == 2));
-      if (!ok)
-        fail("JPEG chroma sampling other than 4:4:4, 4:2:2 or 4:2:0 is not "
-             "supported");
-    }
+    if (nc == 1) comp[0].h = comp[0].v = 1;  // a lone component: 1x1
     hmax = vmax = 1;
     for (int i = 0; i < nc; ++i) {
       hmax = std::max(hmax, comp[i].h);
       vmax = std::max(vmax, comp[i].v);
     }
+    // jinit_upsampler: every component is upsampled by integral factors
+    for (int i = 0; i < nc; ++i)
+      if (hmax % comp[i].h != 0 || vmax % comp[i].v != 0)
+        fail("JPEG with fractional sampling factors (libjpeg refuses them)");
     mcux = (W + 8 * hmax - 1) / (8 * hmax);
     mcuy = (H + 8 * vmax - 1) / (8 * vmax);
     for (int i = 0; i < nc; ++i) {
@@ -770,7 +785,7 @@ struct Decoder {
     int len = u16();
     const uint8_t* seg_end = p + len - 2;
     if (len < 2 || seg_end > end) fail("bad JPEG marker segment length");
-    if (marker == 0xE0 && len >= 7 && std::memcmp(p, "JFIF\0", 5) == 0)
+    if (marker == 0xE0 && len >= 16 && std::memcmp(p, "JFIF\0", 5) == 0)
       jfif = true;
     if (marker == 0xEE && len >= 14 && std::memcmp(p, "Adobe", 5) == 0) {
       adobe = true;
@@ -909,8 +924,8 @@ struct Decoder {
         if (c.coef_bits[k] != 0) useful = true;
     }
     if (smooth_ok && useful)
-      fail("progressive JPEG whose scans leave low-frequency coefficients "
-           "unrefined (libjpeg's block smoothing is not reproduced)");
+      refuse("progressive JPEG whose scans leave low-frequency coefficients "
+             "unrefined (libjpeg's block smoothing is not reproduced)");
     int32_t tmp[64];
     for (int i = 0; i < nc; ++i) {
       Component& c = comp[i];
@@ -958,7 +973,8 @@ struct Decoder {
     int len = u16();
     int ns = u8();
     if (ns < 1 || ns > nc || len != 6 + 2 * ns) fail("bad JPEG scan header");
-    Component* sc[3];
+    int blocks = 0;
+    Component* sc[4];
     for (int i = 0; i < ns; ++i) {
       int id = u8(), t = u8();
       Component* c = nullptr;
@@ -970,7 +986,11 @@ struct Decoder {
       if (c->td > 3 || c->ta > 3) fail("bad JPEG Huffman table id");
       if (!qt_set[c->tq]) fail("JPEG scan uses a missing quantization table");
       sc[i] = c;
+      blocks += c->h * c->v;
     }
+    // jdinput.c: at most 10 blocks in an interleaved scan's MCU
+    if (ns > 1 && blocks > 10)
+      fail("JPEG sampling factors too large for an interleaved scan");
     int ss = u8(), se = u8(), ahl = u8();
     int ah = ahl >> 4, al = ahl & 15;
     if (!progressive && (ss != 0 || se != 63 || ahl != 0))
@@ -1061,8 +1081,6 @@ struct Decoder {
         read_sof(m);
       } else if (m == 0xC4) {
         read_dht();
-      } else if (m == 0xCC) {
-        fail("JPEG with arithmetic coding is not supported");
       } else if (m == 0xDB) {
         read_dqt();
       } else if (m == 0xDD) {
@@ -1071,9 +1089,9 @@ struct Decoder {
       } else if (m == 0xDA) {
         read_sos();
       } else if (m == 0xDC) {
-        fail("JPEG with a DNL marker is not supported");
+        refuse("JPEG with a DNL marker is not supported");
       } else {
-        read_app(m);  // APPn, COM and other segments with a length
+        read_app(m);  // APPn, COM, DAC and other segments with a length
       }
     }
     if (header_only) fail("JPEG without a frame header");
@@ -1087,22 +1105,22 @@ struct Decoder {
     return comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
   }
 
-  // upsampled chroma row `y` (output resolution) of component c into out;
-  // row: scratch of 2 * c.dw samples
-  void chroma_row(const Component& c, int y, uint8_t* out,
-                  uint8_t* row) const {
+  // Row `y` (output resolution) of component c, upsampled as jdsample.c's
+  // jinit_upsampler chooses, into out (W samples); row: scratch of
+  // 2 * (c.dw + 1) samples. Rows above the first and below the last real
+  // one (c.dh - 1) repeat it, as libjpeg's context rows do.
+  void upsampled_row(const Component& c, int y, uint8_t* out,
+                     uint8_t* row) const {
     const int stride = c.bw * 8;
     const int dw = c.dw;
-    if (c.h == hmax && c.v == vmax) {
-      std::memcpy(out, c.pix.data() + (size_t)y * stride, W);
+    const int he = hmax / c.h, ve = vmax / c.v;
+    const uint8_t* pix = c.pix.data();
+    if (he == 1 && ve == 1) {  // fullsize
+      std::memcpy(out, pix + (size_t)y * stride, W);
       return;
     }
-    if (c.v == vmax) {  // h2v1
-      const uint8_t* in = c.pix.data() + (size_t)y * stride;
-      if (dw <= 2) {
-        for (int x = 0; x < W; ++x) out[x] = in[x >> 1];
-        return;
-      }
+    if (he == 2 && ve == 1 && dw > 2) {  // h2v1_fancy_upsample
+      const uint8_t* in = pix + (size_t)y * stride;
       uint8_t* o = row;
       int iv = in[0];
       *o++ = (uint8_t)iv;
@@ -1118,35 +1136,48 @@ struct Decoder {
       std::memcpy(out, row, W);
       return;
     }
-    // h2v2
-    int r = y >> 1;
-    if (dw <= 2) {
-      const uint8_t* in = c.pix.data() + (size_t)r * stride;
-      for (int x = 0; x < W; ++x) out[x] = in[x >> 1];
+    if (he == 1 && ve == 2) {  // h1v2_fancy_upsample
+      int r = y >> 1;
+      int other = (y & 1) ? std::min(r + 1, c.dh - 1) : std::max(r - 1, 0);
+      const uint8_t* in0 = pix + (size_t)r * stride;
+      const uint8_t* in1 = pix + (size_t)other * stride;
+      const int bias = (y & 1) ? 2 : 1;
+      for (int x = 0; x < W; ++x)
+        out[x] = (uint8_t)((in0[x] * 3 + in1[x] + bias) >> 2);
       return;
     }
-    int other = (y & 1) ? std::min(r + 1, c.dh - 1) : std::max(r - 1, 0);
-    const uint8_t* in0 = c.pix.data() + (size_t)r * stride;
-    const uint8_t* in1 = c.pix.data() + (size_t)other * stride;
-    uint8_t* o = row;
-    int this_sum = in0[0] * 3 + in1[0];
-    int next_sum = in0[1] * 3 + in1[1];
-    *o++ = (uint8_t)((this_sum * 4 + 8) >> 4);
-    *o++ = (uint8_t)((this_sum * 3 + next_sum + 7) >> 4);
-    int last_sum = this_sum;
-    this_sum = next_sum;
-    for (int i = 2; i < dw; ++i) {
-      next_sum = in0[i] * 3 + in1[i];
-      *o++ = (uint8_t)((this_sum * 3 + last_sum + 8) >> 4);
+    if (he == 2 && ve == 2 && dw > 2) {  // h2v2_fancy_upsample
+      int r = y >> 1;
+      int other = (y & 1) ? std::min(r + 1, c.dh - 1) : std::max(r - 1, 0);
+      const uint8_t* in0 = pix + (size_t)r * stride;
+      const uint8_t* in1 = pix + (size_t)other * stride;
+      uint8_t* o = row;
+      int this_sum = in0[0] * 3 + in1[0];
+      int next_sum = in0[1] * 3 + in1[1];
+      *o++ = (uint8_t)((this_sum * 4 + 8) >> 4);
       *o++ = (uint8_t)((this_sum * 3 + next_sum + 7) >> 4);
-      last_sum = this_sum;
+      int last_sum = this_sum;
       this_sum = next_sum;
+      for (int i = 2; i < dw; ++i) {
+        next_sum = in0[i] * 3 + in1[i];
+        *o++ = (uint8_t)((this_sum * 3 + last_sum + 8) >> 4);
+        *o++ = (uint8_t)((this_sum * 3 + next_sum + 7) >> 4);
+        last_sum = this_sum;
+        this_sum = next_sum;
+      }
+      *o++ = (uint8_t)((this_sum * 3 + last_sum + 8) >> 4);
+      *o++ = (uint8_t)((this_sum * 4 + 7) >> 4);
+      std::memcpy(out, row, W);
+      return;
     }
-    *o++ = (uint8_t)((this_sum * 3 + last_sum + 8) >> 4);
-    *o++ = (uint8_t)((this_sum * 4 + 7) >> 4);
-    std::memcpy(out, row, W);
+    // h2v1_upsample, h2v2_upsample and int_upsample: replication
+    const uint8_t* in = pix + (size_t)(y / ve) * stride;
+    for (int x = 0; x < W; ++x) out[x] = in[x / he];
   }
 
+  // out: (H, W) samples for one component, (H, W, 3) RGB for three, and
+  // (H, W, 4) inverted CMYK for four (PIL's "CMYK;I": 255 - libjpeg's CMYK
+  // output, which for YCCK is 255 - ycck_cmyk_convert's)
   void output(uint8_t* out) const {
     if (nc == 1) {
       const Component& c = comp[0];
@@ -1156,26 +1187,41 @@ struct Decoder {
       return;
     }
     const ColorTables& t = color_tables();
-    const bool rgb = rgb_colorspace();
-    std::vector<uint8_t> c1(W), c2(W), row(2 * (size_t)(W + 2));
+    // jdapimin.c's colour space: YCbCr or RGB for three components, YCCK
+    // or CMYK for four
+    const bool ycc =
+        nc == 3 ? !rgb_colorspace() : adobe && adobe_transform != 0;
+    std::vector<uint8_t> rows[4];
+    std::vector<uint8_t> scratch(2 * ((size_t)W + 2));
+    for (int i = 0; i < nc; ++i) rows[i].resize(W);
     for (int y = 0; y < H; ++y) {
-      const uint8_t* Y = comp[0].pix.data() + (size_t)y * comp[0].bw * 8;
-      chroma_row(comp[1], y, c1.data(), row.data());
-      chroma_row(comp[2], y, c2.data(), row.data());
-      uint8_t* o = out + (size_t)y * W * 3;
-      if (rgb) {
-        for (int x = 0; x < W; ++x) {
-          o[3 * x] = Y[x];
-          o[3 * x + 1] = c1[x];
-          o[3 * x + 2] = c2[x];
+      for (int i = 0; i < nc; ++i)
+        upsampled_row(comp[i], y, rows[i].data(), scratch.data());
+      const uint8_t *c0 = rows[0].data(), *c1 = rows[1].data(),
+                    *c2 = rows[2].data();
+      uint8_t* o = out + (size_t)y * W * nc;
+      for (int x = 0; x < W; ++x, o += nc) {
+        if (ycc) {
+          int yy = c0[x], cb = c1[x], cr = c2[x];
+          o[0] = clamp8(yy + t.cr_r[cr]);
+          o[1] = clamp8(yy + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+          o[2] = clamp8(yy + t.cb_b[cb]);
+        } else {
+          o[0] = c0[x];
+          o[1] = c1[x];
+          o[2] = c2[x];
         }
-        continue;
       }
-      for (int x = 0; x < W; ++x) {
-        int yy = Y[x], cb = c1[x], cr = c2[x];
-        o[3 * x] = clamp8(yy + t.cr_r[cr]);
-        o[3 * x + 1] = clamp8(yy + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16));
-        o[3 * x + 2] = clamp8(yy + t.cb_b[cb]);
+      if (nc == 4) {
+        // CMYK;I: the inverted CMYK samples; YCCK's inverted C, M and Y,
+        // 255 - clamp(255 - (Y + Cr term)) and so on, are the RGB above
+        const uint8_t* k = rows[3].data();
+        o = out + (size_t)y * W * 4;
+        for (int x = 0; x < W; ++x, o += 4) {
+          if (!ycc)
+            for (int ch = 0; ch < 3; ++ch) o[ch] = (uint8_t)(255 - o[ch]);
+          o[3] = (uint8_t)(255 - k[x]);
+        }
       }
     }
   }
@@ -1580,9 +1626,11 @@ int jpeg_info(const uint8_t* data, long n, int* H, int* W, int* C) {
   }
 }
 
-// Decode a baseline or progressive JPEG into out: (H, W) samples for one component, (H, W,
-// 3) RGB for three; H, W and C must be jpeg_info's. Returns 0, or -1 with
-// jpeg_last_error() set.
+// Decode a baseline or progressive JPEG into out: (H, W) samples for one
+// component, (H, W, 3) RGB for three, (H, W, 4) inverted CMYK for four; H,
+// W and C must be jpeg_info's. Returns 0, or with jpeg_last_error() set -2
+// for a file of a variant this decoder does not implement and -1 for a
+// broken one.
 int jpeg_decode(const uint8_t* data, long n, uint8_t* out, int H, int W,
                 int C) {
   try {
@@ -1594,7 +1642,7 @@ int jpeg_decode(const uint8_t* data, long n, uint8_t* out, int H, int W,
     return 0;
   } catch (const jpg::Error& e) {
     jpg::t_error = e.msg;
-    return -1;
+    return e.unsupported ? -2 : -1;
   } catch (const std::bad_alloc&) {
     jpg::t_error = "out of memory decoding a JPEG";
     return -1;

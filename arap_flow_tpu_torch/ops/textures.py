@@ -6,19 +6,19 @@ as scalar fields over the image grid in plain torch on an explicit device.
 
 Each family and `render` come in two parts:
 
-- a draw, ``draw_params(family, generator)`` and ``draw_render_params(
-  family, H, W, generator)``, which takes every random value from a
-  ``torch.Generator`` on the CPU and returns a dict of Python floats and
-  ints (float32 values where the JAX package draws float32);
+- a draw, ``draw_params(family, key)`` and ``draw_render_params(family,
+  H, W, key)``, which takes every random value from a key of
+  ``utils.prng`` (the JAX package's ``jax.random`` stream, replayed on the
+  host) with the JAX functions' own splits and ``fold_in``s, and returns a
+  dict of Python floats and ints (float32 values where JAX draws float32);
 - a pure part, ``field(family, params, H, W, device)`` and
   ``render_params(family, params, H, W, device)``, which computes the
   texture from those values on `device`.
 
-So one seed gives the same texture on whichever device renders it. The
-JAX package draws the same parameters from ``jax.random`` keys, whose
-stream torch cannot replay: the pure parts take the same values and
-compute what the JAX functions compute (tests/test_torch_textures.py
-draws the JAX values and holds the two to each other).
+So one key gives JAX's values, and the same texture on whichever device
+renders it; ``render(key, family, H, W)`` and ``random_texture(key, H,
+W)`` take JAX's arguments in JAX's order (tests/test_torch_textures.py
+holds the draws and the images to JAX's).
 
 ``_hash01`` is the JAX package's uint32 lattice hash, computed in int64
 with each product kept below 2^63 and every step masked to 32 bits.
@@ -28,7 +28,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from ..utils import prng
 
 FAMILIES = ("brick", "checker", "magic", "musgrave", "noise", "voronoi", "wave")
 
@@ -199,43 +202,63 @@ _FIELDS = {
 }
 
 
-def _uniform(g: torch.Generator, lo: float, hi: float) -> float:
-    """One float32 uniform in [lo, hi) from `g`."""
-    u = torch.rand((), generator=g, dtype=torch.float32)
-    return float(lo + (hi - lo) * u)
+def _uniform(key, lo: float, hi: float) -> float:
+    """One float32 uniform in [lo, hi) drawn from `key`."""
+    return float(prng.uniform(key, lo, hi))
 
 
-def _salt(g: torch.Generator) -> int:
-    return int(torch.randint(0, 10000, (), generator=g))
+def _salt(key) -> int:
+    return prng.randint(key, 0, 10000)
 
 
-def _brick_draw(g: torch.Generator) -> dict:
-    bh = torch.tensor(_uniform(g, 20.0, 60.0), dtype=torch.float32)
-    ratio = torch.tensor(_uniform(g, 1.5, 3.5), dtype=torch.float32)
-    return {"bh": float(bh), "bw": float(bh * ratio), "salt": _salt(g)}
+def _scale_salt(lo: float, hi: float):
+    """The draw of a family with a scale in [lo, hi) and a lattice salt."""
+    def draw(key) -> dict:
+        k1, k2 = prng.split(key)
+        return {"scale": _uniform(k1, lo, hi), "salt": _salt(k2)}
+    return draw
 
 
-# each family's random parameters (the ranges of the JAX package's draws,
-# textures.py:78-185)
+def _brick_draw(key) -> dict:
+    k1, k2, k3 = prng.split(key, 3)
+    bh = prng.uniform(k1, 20.0, 60.0)
+    bw = bh * prng.uniform(k2, 1.5, 3.5)  # a float32 product, as in JAX
+    return {"bh": float(bh), "bw": float(bw), "salt": _salt(k3)}
+
+
+def _checker_draw(key) -> dict:
+    k1, k2 = prng.split(key)
+    return {"size": _uniform(k1, 20.0, 120.0), "salt": _salt(k2)}
+
+
+def _magic_draw(key) -> dict:
+    k1, k2 = prng.split(key)
+    return {"scale": _uniform(k1, 60.0, 250.0), "turb": _uniform(k2, 1.0, 3.0)}
+
+
+def _wave_draw(key) -> dict:
+    k1, k2, k3 = prng.split(key, 3)
+    return {"scale": _uniform(k1, 30.0, 150.0),
+            "distort": _uniform(k2, 0.0, 8.0), "salt": _salt(k3)}
+
+
+# each family's random parameters: the JAX package's draws, key splits
+# included (textures.py:78-185)
 _DRAWS = {
     "brick": _brick_draw,
-    "checker": lambda g: {"size": _uniform(g, 20.0, 120.0), "salt": _salt(g)},
-    "magic": lambda g: {"scale": _uniform(g, 60.0, 250.0),
-                        "turb": _uniform(g, 1.0, 3.0)},
-    "musgrave": lambda g: {"scale": _uniform(g, 40.0, 300.0),
-                           "salt": _salt(g)},
-    "noise": lambda g: {"scale": _uniform(g, 20.0, 200.0), "salt": _salt(g)},
-    "voronoi": lambda g: {"scale": _uniform(g, 40.0, 160.0),
-                          "salt": _salt(g)},
-    "wave": lambda g: {"scale": _uniform(g, 30.0, 150.0),
-                       "distort": _uniform(g, 0.0, 8.0), "salt": _salt(g)},
+    "checker": _checker_draw,
+    "magic": _magic_draw,
+    "musgrave": _scale_salt(40.0, 300.0),
+    "noise": _scale_salt(20.0, 200.0),
+    "voronoi": _scale_salt(40.0, 160.0),
+    "wave": _wave_draw,
 }
 
 
-def draw_params(family: str, generator: torch.Generator) -> dict:
-    """The random parameters of one `family` field, drawn from `generator`
-    (a CPU torch.Generator)."""
-    return _DRAWS[family](generator)
+def draw_params(family: str, key) -> dict:
+    """The random parameters of one `family` field, drawn from `key` (a
+    ``utils.prng`` key) as the JAX family function draws them."""
+    return _DRAWS[family](key)
 
 
 def field(family: str, params: dict, H: int, W: int, device) -> torch.Tensor:
@@ -278,23 +301,29 @@ def _colour_linear(hs, device) -> torch.Tensor:
                                      1.0))
 
 
-def draw_render_params(family: str, H: int, W: int,
-                       generator: torch.Generator) -> dict:
-    """The random values of one `render`: the family's parameters, two
-    material colours (uniform hue and saturation, texture_gen.py:163-173),
-    the point light's position above the plane and its colour (uniform hue,
-    saturation clamp(N(0.35, 0.25), 0, 1), texture_gen.py:99-100,
-    :318-320)."""
-    g = generator
-    p = {"field": draw_params(family, g)}
-    p["c1"] = (_uniform(g, 0.0, 1.0), _uniform(g, 0.0, 1.0))
-    p["c2"] = (_uniform(g, 0.0, 1.0), _uniform(g, 0.0, 1.0))
-    p["lx"] = _uniform(g, 0.0, float(W))
-    p["ly"] = _uniform(g, 0.0, float(H))
-    p["lz"] = float(torch.tensor(_uniform(g, 0.4, 1.2), dtype=torch.float32)
-                    * W)
-    lamp_s = torch.clamp(0.35 + 0.25 * torch.randn((), generator=g), 0.0, 1.0)
-    p["lamp"] = (_uniform(g, 0.0, 1.0), float(lamp_s))
+def _hue_sat(key) -> tuple:
+    """A uniform hue and saturation (random_color, texture_gen.py:163-173)."""
+    kh, ks = prng.split(key)
+    return (_uniform(kh, 0.0, 1.0), _uniform(ks, 0.0, 1.0))
+
+
+def draw_render_params(family: str, H: int, W: int, key) -> dict:
+    """The random values of one `render`, drawn from `key` with the JAX
+    render's splits: the family's parameters, two material colours
+    (uniform hue and saturation, texture_gen.py:163-173), the point light's
+    position above the plane and its colour (uniform hue, saturation
+    clamp(N(0.35, 0.25), 0, 1), texture_gen.py:99-100, :318-320)."""
+    kf, kc1, kc2, kl = prng.split(key, 4)
+    p = {"field": draw_params(family, kf), "c1": _hue_sat(kc1),
+         "c2": _hue_sat(kc2)}
+    p["lx"] = _uniform(kl, 0.0, float(W))
+    p["ly"] = _uniform(prng.fold_in(kl, 1), 0.0, float(H))
+    p["lz"] = float(prng.uniform(prng.fold_in(kl, 2), 0.4, 1.2)
+                    * np.float32(W))
+    kh, ks = prng.split(prng.fold_in(kl, 3))
+    lamp_s = np.clip(prng.normal_affine(ks, 0.25, 0.35), np.float32(0.0),
+                     np.float32(1.0))  # as JAX's jitted render computes it
+    p["lamp"] = (_uniform(kh, 0.0, 1.0), float(lamp_s))
     return p
 
 
@@ -317,16 +346,18 @@ def render_params(family: str, params: dict, H: int, W: int,
     return (torch.clamp(linear_to_srgb(out), 0.0, 1.0) * 255.0).to(torch.uint8)
 
 
-def render(family: str, generator: torch.Generator, H: int = 720,
-           W: int = 1280, *, device) -> torch.Tensor:
-    """Draw one texture's values from `generator` and render it on
-    `device`: (H, W, 3) uint8."""
-    return render_params(family, draw_render_params(family, H, W, generator),
+def render(key, family: str, H: int = 720, W: int = 1280, *,
+           device) -> torch.Tensor:
+    """Draw one texture's values from `key` and render it on `device`:
+    (H, W, 3) uint8, the JAX package's ``render(key, family, H, W)``."""
+    return render_params(family, draw_render_params(family, H, W, key),
                          H, W, device)
 
 
-def random_texture(generator: torch.Generator, H: int = 720, W: int = 1280,
-                   *, device) -> torch.Tensor:
-    """Render a texture of a uniformly drawn family."""
-    fam = FAMILIES[int(torch.randint(0, len(FAMILIES), (), generator=generator))]
-    return render(fam, generator, H, W, device=device)
+def random_texture(key, H: int = 720, W: int = 1280, *,
+                   device) -> torch.Tensor:
+    """Render a texture of a uniformly drawn family: the family from
+    ``randint(key, 0, 7)``, the texture from ``fold_in(key, 7)``, as the
+    JAX package's ``random_texture``."""
+    fam = FAMILIES[prng.randint(key, 0, len(FAMILIES))]
+    return render(prng.fold_in(key, 7), fam, H, W, device=device)

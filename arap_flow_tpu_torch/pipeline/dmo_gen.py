@@ -50,6 +50,7 @@ import torch
 
 from ..io.image import load_mask, load_rgb, save_image
 from ..ops.textures import random_texture
+from ..utils import prng
 from ..utils.config import cli_device
 from .para_gen import (COLOR_DIR, FLOW_DIR, MASK_DIR, ORGCOLOR, ORGMASK,
                        WMASK_DIR, WRGB_DIR, PipelineFlags, main_pipeline,
@@ -59,9 +60,10 @@ from .warp_tool import warp_image
 
 def _texture_for(key_seed: int, H: int, W: int, device) -> np.ndarray:
     """A random texture of twice the frame's size (object-tracked sampling
-    stays inside it), drawn from a generator seeded with `key_seed`."""
-    g = torch.Generator().manual_seed(key_seed)
-    return random_texture(g, 2 * H, 2 * W, device=device).cpu().numpy()
+    stays inside it), drawn from ``prng.key(key_seed)`` as in the JAX
+    package."""
+    return random_texture(prng.key(key_seed), 2 * H, 2 * W,
+                          device=device).cpu().numpy()
 
 
 def texture_sequence(mask_paths: list[str], out_dir: str, seed: int, *,

@@ -7,9 +7,10 @@ written as PNGs.
         [--size 1280 720] [--seed 0] [--families brick checker ...] \\
         [--prefix texture] [--device cuda]
 
-The family of image i comes from a numpy Generator seeded with --seed, as
-in the JAX package, so one seed picks the same families in both; its
-values come from a torch.Generator seeded with seed·100003 + i.
+The family of image i comes from a numpy Generator seeded with --seed and
+its values from the key ``prng.key(seed·100003 + i)``, as in the JAX
+package, so one seed gives the JAX package's files: the same names and
+the same images.
 """
 
 from __future__ import annotations
@@ -19,10 +20,10 @@ import os
 import os.path as osp
 
 import numpy as np
-import torch
 
 from ..io.image import save_image
 from ..ops.textures import FAMILIES, render
+from ..utils import prng
 from ..utils.config import cli_device
 
 
@@ -50,8 +51,8 @@ def main(argv=None):
     os.makedirs(a.output, exist_ok=True)
     W, H = a.size
     for i, fam in enumerate(family_sequence(a.num, a.seed, a.families)):
-        g = torch.Generator().manual_seed(a.seed * 100003 + i)
-        img = render(fam, g, H, W, device=device).cpu().numpy()
+        key = prng.key(a.seed * 100003 + i)
+        img = render(key, fam, H, W, device=device).cpu().numpy()
         save_image(osp.join(a.output, f"{a.prefix}_{i:05d}_{fam}.png"), img)
         if (i + 1) % 25 == 0:
             print(f"{i + 1}/{a.num}")

@@ -91,18 +91,26 @@ Phases, each reported on its own line; any failure exits non-zero:
        ZNCC launch.
 
 8. the DMO dataset path:
-   8a. ``ops.textures``: each of the 7 families rendered at 1280x720 from
-       fixed drawn values on the card and on the CPU: fields within 1e-4,
-       uint8 images equal on >= 99.9% of values and elsewhere within 1; ms
-       a texture on the card.
+   8a. ``ops.textures``: each of the 7 families drawn from the key
+       ``prng.key(80 + i)``: the drawn values equal, bitwise, the ones the
+       JAX package draws from ``jax.random.PRNGKey(80 + i)`` (constants
+       recorded from JAX: this machine has none), and a 64x96 render's
+       byte checksums on the card and on the CPU hold JAX's within the
+       texture tolerance; then rendered at 1280x720 on the card and on the
+       CPU: fields within 1e-4, uint8 images equal on >= 99.9% of values
+       and elsewhere within 1; ms a texture on the card.
    8b. ``dmo_gen.run`` on phase 5's two ellipses (masks only, 5 frames at
        854x480) at fd 1 and 2 with two texture sets, batched and multseg
        at 19x8x400, cold and warm into fresh trees: the set-0 and set-1
        Flow and wMasks byte-identical, their inpRGB and wRGB different
-       (mean |d| > 2), each object's median |flow - fd*t| < 1 px, the
-       launches of zncc_search and pcg_fixed as predicted (> 0 each), no
-       failed write; seconds a solved pair and the textured frames'
-       seconds.
+       (mean |d| > 2), each object's median |flow - fd*t| held to the
+       JAX package's own run of this tree (DMO_JAX_ERRS, recorded from
+       JAX: with its textures the reference misses the motion of the
+       near-uniform object 1, and of object 2 by up to 1.36 px): < 1 px
+       wherever JAX's is, object 2 within 0.5 px of JAX's, object 1 below
+       JAX's plus half its motion (dmo_flow_gate); the launches of
+       zncc_search and pcg_fixed as predicted (> 0 each), no failed write;
+       seconds a solved pair and the textured frames' seconds.
    8c. ``matching._search_subpatch`` at the 854x480 frame's coarse shape
        (60x106, r = 13) on the card against the CPU: scores within 2e-4,
        offsets equal on >= 99% of pixels and elsewhere only on ties within
@@ -1797,22 +1805,119 @@ def phase_binary_matcher(smi: str) -> None:
 # subpatch search to itself on the CPU at the 854x480 frame's coarse shape
 # (60x106, r = 13) and matches a translated 854x480 pair with it.
 TEX_H, TEX_W = 720, 1280
+# What the JAX package draws for family i from jax.random.PRNGKey(80 + i)
+# at TEX_H x TEX_W (arap_flow_tpu/ops/textures.py's render, its splits and
+# fold_ins), recorded from JAX 0.9.0 (partitionable threefry, x64 off) on
+# the CPU, and the checksums of its 64x96 render from the same key: the
+# byte sum and the sum weighted by (index mod 251) + 1 over the flattened
+# (64, 96, 3) uint8 image.
+TEX_JAX_DRAWS = {
+    "brick": {"field": {"bh": 41.466209411621094, "bw": 128.61734008789062,
+                        "salt": 4500},
+              "c1": (0.7833267450332642, 0.08622419834136963),
+              "c2": (0.8968086242675781, 0.6349592208862305),
+              "lx": 741.7562866210938, "ly": 237.5738525390625,
+              "lz": 1019.6558837890625,
+              "lamp": (0.15982317924499512, 0.3082083761692047)},
+    "checker": {"field": {"size": 75.69142150878906, "salt": 8367},
+                "c1": (0.16992509365081787, 0.5612105131149292),
+                "c2": (0.8330081701278687, 0.1864936351776123),
+                "lx": 689.0052490234375, "ly": 674.3316650390625,
+                "lz": 691.2297973632812,
+                "lamp": (0.08031535148620605, 0.4514720141887665)},
+    "magic": {"field": {"scale": 168.31243896484375,
+                        "turb": 1.1462962627410889},
+              "c1": (0.5940728187561035, 0.6032360792160034),
+              "c2": (0.6778538227081299, 0.7527016401290894),
+              "lx": 1122.1119384765625, "ly": 317.77001953125,
+              "lz": 812.8345947265625,
+              "lamp": (0.14213669300079346, 0.304582804441452)},
+    "musgrave": {"field": {"scale": 282.7886962890625, "salt": 2710},
+                 "c1": (0.4351067543029785, 0.15713047981262207),
+                 "c2": (0.8525038957595825, 0.40105509757995605),
+                 "lx": 534.4094848632812, "ly": 444.499267578125,
+                 "lz": 1320.164306640625,
+                 "lamp": (0.379291296005249, 0.3209161162376404)},
+    "noise": {"field": {"scale": 140.47401428222656, "salt": 5894},
+              "c1": (0.3219001293182373, 0.37103450298309326),
+              "c2": (0.278814435005188, 0.11680471897125244),
+              "lx": 443.0619812011719, "ly": 17.962474822998047,
+              "lz": 946.5996704101562,
+              "lamp": (0.01751089096069336, 0.28282618522644043)},
+    "voronoi": {"field": {"scale": 82.5888900756836, "salt": 8634},
+                "c1": (0.27859795093536377, 0.05232644081115723),
+                "c2": (0.26984119415283203, 0.26174938678741455),
+                "lx": 1187.5316162109375, "ly": 499.50921630859375,
+                "lz": 612.8084716796875,
+                "lamp": (0.7003108263015747, 0.36502763628959656)},
+    "wave": {"field": {"scale": 102.95735931396484,
+                       "distort": 4.8272199630737305, "salt": 3401},
+             "c1": (0.1135183572769165, 0.8738170862197876),
+             "c2": (0.7509418725967407, 0.6336793899536133),
+             "lx": 63.840789794921875, "ly": 70.99613952636719,
+             "lz": 758.360595703125,
+             "lamp": (0.8708604574203491, 0.13437342643737793)},
+}
+TEX_JAX_SUMS = {  # family: (byte sum, weighted sum) of the 64x96 render
+    "brick": (3842737, 482573883), "checker": (3212144, 403932548),
+    "magic": (2665213, 335020548), "musgrave": (4007404, 503477752),
+    "noise": (3539502, 444739361), "voronoi": (2933338, 368660560),
+    "wave": (2856008, 358790033),
+}
 DMO_FDS = (1, 2)
+# The JAX package's own dmo_gen on phase 8b's tree (seed 0, set 0, batched
+# multseg, 19x8x400, JAX 0.9.0 on the CPU): each object's median |flow -
+# fd*(dx, dy)| in px by (fd, pair, object). Object 1's texture (musgrave,
+# scale 168, two near colours) is near-uniform, so the reference's
+# matcher cannot track it; object 2's it tracks.
+DMO_JAX_ERRS = {
+    (1, 0, 1): 3.938, (1, 0, 2): 0.891, (1, 1, 1): 5.364, (1, 1, 2): 0.554,
+    (1, 2, 1): 4.745, (1, 2, 2): 1.168, (1, 3, 1): 3.673, (1, 3, 2): 1.11,
+    (2, 0, 1): 13.416, (2, 0, 2): 0.929, (2, 1, 1): 8.385, (2, 1, 2): 1.358,
+    (2, 2, 1): 8.515, (2, 2, 2): 0.79,
+}
+DMO_TRACKED_MARGIN = 0.5  # px from JAX's error (dmo_flow_gate)
+DMO_UNTRACKED = (1,)  # objects whose JAX texture is near-uniform
 SUBPATCH_SHAPE = (60, 106, 13)
 SUBPATCH_SHIFT = (6, -3)  # (dx, dy) of the translated pair
 
 
+def texture_sums(img: np.ndarray) -> tuple[int, int]:
+    """The byte sum and the (index mod 251) + 1 weighted sum of a uint8
+    image (TEX_JAX_SUMS)."""
+    v = img.reshape(-1).astype(np.int64)
+    return int(v.sum()), int((v * (np.arange(v.size) % 251 + 1)).sum())
+
+
 def phase_textures(smi: str) -> None:
-    """8a: each family's field and image on the card against the CPU from
-    the same drawn values."""
+    """8a: each family's draws from prng.key(80 + i) against JAX's recorded
+    values, a 64x96 render's checksums against JAX's, and the field and
+    image on the card against the CPU from the same drawn values."""
     import torch
 
     from arap_flow_tpu_torch.ops import textures
+    from arap_flow_tpu_torch.utils import prng
 
     dev = torch.device("cuda", 0)
     for i, fam in enumerate(textures.FAMILIES):
-        p = textures.draw_render_params(fam, TEX_H, TEX_W,
-                                        torch.Generator().manual_seed(80 + i))
+        key = prng.key(80 + i)
+        p = textures.draw_render_params(fam, TEX_H, TEX_W, key)
+        if p != TEX_JAX_DRAWS[fam]:
+            raise AssertionError(f"phase 8a {fam}: drawn values {p} are not "
+                                 f"JAX's {TEX_JAX_DRAWS[fam]}")
+        # a uint8 image >= 99.9% equal to JAX's and elsewhere within 1
+        # moves each sum by at most that share of its values (times 251)
+        n = 64 * 96 * 3
+        want = TEX_JAX_SUMS[fam]
+        for where in (dev, "cpu"):
+            got = texture_sums(textures.render(key, fam, 64, 96,
+                                               device=where).cpu().numpy())
+            line = (f"phase 8a {fam}: draws equal JAX's; 64x96 render on "
+                    f"{where}: checksums {got}, JAX's {want}")
+            say(line)
+            if not (abs(got[0] - want[0]) <= n // 1000
+                    and abs(got[1] - want[1]) <= 251 * (n // 1000)):
+                raise AssertionError(line)
         f_err = float((textures.field(fam, p["field"], TEX_H, TEX_W, dev).cpu()
                        - textures.field(fam, p["field"], TEX_H, TEX_W, "cpu")
                        ).abs().max())
@@ -1827,6 +1932,31 @@ def phase_textures(smi: str) -> None:
         say(line)
         if not (f_err <= 1e-4 and (d != 0).mean() <= 1e-3 and d.max() <= 1):
             raise AssertionError(line)
+
+
+def dmo_flow_gate(fd: int, t: int, obj: int, err: float) -> str | None:
+    """Why object ``obj``'s median flow error ``err`` (px) at 8b's pair
+    ``t`` of frame distance ``fd`` fails, or None. Every object-pair is held
+    to the JAX package's error on it (DMO_JAX_ERRS), and below 1 px
+    wherever JAX is: a tracked object within DMO_TRACKED_MARGIN of JAX, an
+    untracked one (DMO_UNTRACKED) below JAX plus half its motion, which a
+    flow moving it the wrong way or with the other object's motion
+    exceeds."""
+    ref = DMO_JAX_ERRS[(fd, t, obj)]
+    if not np.isfinite(err):
+        return f"median flow error {err} is not finite"
+    if ref < 1.0 and not err < 1.0:
+        return f"median flow error {err} >= 1 px where JAX's is {ref}"
+    if obj in DMO_UNTRACKED:
+        dx, dy = PIPE_OBJECTS[obj - 1][2]
+        bound = ref + fd * float(np.hypot(dx, dy)) / 2
+        if not err <= bound:
+            return (f"median flow error {err} above JAX's {ref} plus half "
+                    f"the motion ({bound:.3f} px)")
+    elif not abs(err - ref) <= DMO_TRACKED_MARGIN:
+        return (f"median flow error {err} not within {DMO_TRACKED_MARGIN} px "
+                f"of JAX's {ref}")
+    return None
 
 
 def make_mask_tree(root: str) -> None:
@@ -1911,10 +2041,15 @@ def check_dmo(masks: str, out: str, cfg, launches: dict) -> None:
                 err = float(np.median(np.hypot(u[obj] - fd * dx,
                                                v[obj] - fd * dy)))
                 say(f"phase 8b fd {fd} pair {t} object {k + 1}: median |flow "
-                    f"- ({fd * dx}, {fd * dy})| {err:.4f} px")
-                if not err < 1.0:
+                    f"- ({fd * dx}, {fd * dy})| {err:.4f} px (JAX "
+                    f"{DMO_JAX_ERRS[(fd, t, k + 1)]:.3f})")
+                why = dmo_flow_gate(fd, t, k + 1, err)
+                if not (np.isfinite(u[obj]).all()
+                        and np.isfinite(v[obj]).all()):
+                    why = "the flow is not finite"
+                if why:
                     raise AssertionError(f"fd {fd} pair {t} object {k + 1}: "
-                                         f"median flow error {err} >= 1 px")
+                                         f"{why}")
         z, p, _, _ = predicted_launches(
             os.path.join(out, "set0", "textured"), s0, cfg, ArapWeights(),
             masks=mk[:n_pairs])

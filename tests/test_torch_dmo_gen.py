@@ -2,16 +2,20 @@
 
 - ``texture_sequence``: with one texture substituted in both packages, the
   textured frames are bitwise JAX's (captured before the JPEG encoders,
-  which differ: the port's is not libjpeg byte for byte).
+  which differ: the port's is not libjpeg byte for byte); with the real
+  textures, drawn by both packages from the same seed, the frames and the
+  decoded .jpg files are JAX's within the texture tolerance (>= 99.9%
+  equal, else within 1).
 - ``replicate_texture_set``: both packages re-texture one set-0 tree from
   one set-k input tree (portrait, so the transpose runs): inpRGB bitwise;
   wRGB bitwise with the host splat and equal to JAX's device rasterizer
   with ``device``; Flow, inpMasks and wMasks linked from set 0.
 - tests/test_dmo_gen.py's three scenarios on the port: the flow against the
   mask motion, two texture sets with a byte-identical Flow, and portrait
-  masks. The port draws its own textures, so only its own runs are
-  compared with each other. The dual-set run is made in a subprocess where
-  importing PIL, jax or arap_flow_tpu fails, beside a texture_gen run.
+  masks, on the port's own runs; the dual-set run's set-0 Flow is also
+  held to JAX's dmo_gen on the same masks and seed. The dual-set run is
+  made in a subprocess where importing PIL, jax or arap_flow_tpu fails,
+  beside a texture_gen run.
 
 Every run is on the CPU, with tests/test_pipeline.py's short schedule and
 the matcher on a 2×-pooled image (the full-size CPU search at radius 64
@@ -91,6 +95,41 @@ def test_texture_sequence_frames_bitwise_jax(tmp_path, monkeypatch):
     for (jn, ja), (tn, ta) in zip(frames["jax"], frames["port"]):
         assert jn == tn and jn.endswith(".jpg")
         np.testing.assert_array_equal(ta, ja)
+
+
+def _assert_uint8_close(a: np.ndarray, b: np.ndarray) -> None:
+    """tests/test_torch_textures.py's gate: >= 99.9% equal, else within 1."""
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    assert a.shape == b.shape
+    assert (d == 0).mean() >= 0.999, (d != 0).mean()
+    assert d.max() <= 1
+
+
+def test_texture_sequence_textures_match_jax(tmp_path, monkeypatch):
+    """Both packages texture one sequence from one seed: JAX's textures."""
+    paths = []
+    os.makedirs(tmp_path / "orgMasks" / "seq0")
+    for t in range(2):  # two objects over a textured background
+        m = np.zeros((H, W), np.uint8)
+        m[10 + 2 * t : 40 + 2 * t, 8 + 3 * t : 44 + 3 * t] = 1
+        m[44:60, 50 - 4 * t : 74 - 4 * t] = 2
+        paths.append(str(tmp_path / "orgMasks" / "seq0" / f"{t:05d}.png"))
+        save_image(paths[-1], m)
+    frames = {}
+    for name, mod in (("jax", JD), ("port", TD)):
+        monkeypatch.setattr(
+            mod, "save_image",
+            lambda p, a, _n=name, _s=mod.save_image: (
+                frames.setdefault(_n, []).append(np.array(a)), _s(p, a)))
+    JD.texture_sequence(paths, str(tmp_path / "j"), 11)
+    TD.texture_sequence(paths, str(tmp_path / "t"), 11, device="cpu")
+    assert len(frames["port"]) == len(frames["jax"]) == 2
+    for ja, ta in zip(frames["jax"], frames["port"]):
+        _assert_uint8_close(ta, ja)
+    for t in range(2):  # and the decoded files of both encoders
+        name = f"{t:05d}.jpg"
+        _assert_uint8_close(load_rgb(tmp_path / "t" / name),
+                            load_rgb(tmp_path / "j" / name))
 
 
 def _set0_tree(root):
@@ -182,9 +221,15 @@ def test_runs_without_pil_and_jax(dual_run):
     assert load_rgb(osp.join(tex, names[0])).shape == (24, 40, 3)
 
 
-def test_dmo_assemble_and_flow(dual_run):
+def test_dmo_assemble_and_flow(dual_run, tmp_path):
     """The textured frames exist beside linked masks, and the object's
-    texture moves with its mask: the set-0 flow recovers the motion."""
+    texture moves with its mask: the flow recovers the motion.
+
+    The flow is checked as tests/test_dmo_gen.py checks JAX's: seed 3 and
+    the matcher at full size, on the first pair (a 2-frame tree: the same
+    textured frames 0 and 1). The dual run's 2×-pooled matcher misses u by
+    0.976 px on seed 3's texture, in both packages alike (JAX's stream,
+    measured on the CPU)."""
     masks, out, _, _ = dual_run
     troot = osp.join(out, "set0", "textured")
     assert load_rgb(osp.join(troot, "orgRGB", "seq0", "00000.jpg")).shape == (
@@ -192,11 +237,47 @@ def test_dmo_assemble_and_flow(dual_run):
     assert osp.islink(osp.join(troot, "orgMasks", "seq0", "00000.png"))
     with open(osp.join(out, "set0", "fd1", "all_files.list")) as f:
         assert len(f.read().splitlines()) == 2
-    u, v = flo.flow_read(osp.join(out, "set0", "fd1", "Flow", "seq0",
-                                  "00000.flo"))
+    masks2 = str(tmp_path / "masks")
+    _make_masks(masks2, n_frames=2)
+    troot2 = TD.assemble(masks2, str(tmp_path / "out"), 3, device="cpu")
+    for t in range(2):  # the dual run's frames
+        name = osp.join("orgRGB", "seq0", f"{t:05d}.jpg")
+        np.testing.assert_array_equal(load_rgb(osp.join(troot2, name)),
+                                      load_rgb(osp.join(troot, name)))
+    flags = TP.PipelineFlags(input=troot2, output=str(tmp_path / "fd1"),
+                             fd=1, seed=0, device="cpu")
+    TP.main_pipeline(flags, solver_cfg=SolverConfig(**CFG))
+    u, v = flo.flow_read(str(tmp_path / "fd1" / "Flow" / "seq0" /
+                             "00000.flo"))
     obj = load_mask(osp.join(masks, "orgMasks", "seq0", "00000.png")) == 1
     assert abs(np.median(u[obj]) - DX) < 0.6
     assert abs(np.median(v[obj]) - DY) < 0.6
+
+
+def test_dual_run_flow_matches_jax(dual_run, tmp_path, monkeypatch):
+    """The dual run's set-0 Flow, the product of its 2×-pooled matcher, is
+    the JAX package's dmo_gen on the same masks and seed: each pair's
+    median u and v over the object within 1e-3 px of JAX's, and every value
+    within 1e-4 px."""
+    from arap_flow_tpu.io.flo import flow_read as jax_flow_read
+    from arap_flow_tpu.ops.solver import SolverConfig as JaxSolverConfig
+    from arap_flow_tpu.pipeline import para_gen as JP
+
+    masks, out, _, _ = dual_run
+    monkeypatch.setattr(JD, "PipelineFlags",
+                        functools.partial(JP.PipelineFlags, match_downscale=2))
+    jout = str(tmp_path / "jax")
+    JD.run(masks, jout, fds=[1], seed=3, texture_sets=2,
+           solver_cfg=JaxSolverConfig(**CFG))
+    for t in range(2):
+        name = osp.join("fd1", "Flow", "seq0", f"{t:05d}.flo")
+        tu, tv = flo.flow_read(osp.join(out, "set0", name))
+        ju, jv = jax_flow_read(osp.join(jout, "set0", name))
+        obj = load_mask(osp.join(masks, "orgMasks", "seq0",
+                                 f"{t:05d}.png")) == 1
+        for a, b in ((tu, ju), (tv, jv)):
+            assert abs(np.median(a[obj]) - np.median(b[obj])) <= 1e-3
+            assert np.abs(a - b).max() <= 1e-4
 
 
 def _read(p):

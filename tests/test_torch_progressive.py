@@ -9,7 +9,9 @@ package reads frames and backgrounds with.
   decode bitwise equal to ``Image.open(...).convert("RGB")``.
 - Refused with ValueError: a truncated progressive file, and one whose scan
   script stops before the last refinement scans (libjpeg smooths such
-  blocks, which the port does not reproduce).
+  blocks, which the port does not reproduce: the decoder raises its
+  ``JpegUnsupported`` kind, and ``io.image`` hands the file to PIL, held
+  in tests/test_torch_jpeg.py).
 - ``para_gen`` of both packages with a progressive ``--bg_dir``: the
   composited inputs are pixel-identical, and the flows, list and masks hold
   the dryrun parity's tolerances (tests/test_torch_dryrun.py).

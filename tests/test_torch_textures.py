@@ -1,17 +1,19 @@
 """The port's procedural textures (ops/textures.py) and texture_gen against
 the JAX package's.
 
-The JAX package draws each texture's values from ``jax.random`` keys, whose
-stream torch cannot replay; the port draws them from a torch.Generator and
-computes the texture from them in a pure function. The parity cases draw
-the JAX values here, with the JAX functions' own key splits (the family
+Both packages draw each texture's values from keys of one stream: the JAX
+package from ``jax.random``, the port from ``utils.prng``, its replay on
+the host (tests/test_torch_prng.py). The pure parts are held first on
+values drawn here with the JAX functions' own key splits (the family
 functions at arap_flow_tpu/ops/textures.py:78-185, ``render``'s splits and
-``fold_in``s at :250-266), and render them through the port.
+``fold_in``s at :250-266); then the port's draws are held equal to those,
+and ``render``, ``random_texture`` and texture_gen's files to JAX's from
+the same keys and seeds, end to end.
 
-Tolerances: the lattice hash bitwise; fields within 1e-5 (XLA's and torch's
-sin/cos and pow differ in the last bits); uint8 images equal on >= 99.9% of
-pixels and elsewhere within 1. The port's own draws are held by ports of
-tests/test_textures.py's distribution checks.
+Tolerances: the lattice hash bitwise; drawn values bitwise; fields within
+1e-5 (XLA's and torch's sin/cos and pow differ in the last bits); uint8
+images equal on >= 99.9% of pixels and elsewhere within 1. Ports of
+tests/test_textures.py's distribution checks hold the renders too.
 """
 
 import colorsys
@@ -24,6 +26,7 @@ import torch
 
 from arap_flow_tpu.ops import textures as JT
 from arap_flow_tpu_torch.ops import textures as TT
+from arap_flow_tpu_torch.utils import prng
 
 torch.set_num_threads(2)
 
@@ -57,6 +60,13 @@ def jax_field_params(family: str, key) -> dict:
     return {"scale": _ju(k1, lo, hi), "salt": _jsalt(k2)}
 
 
+# the lamp's saturation as JAX's jitted render computes it (XLA folds
+# 0.25 · sqrt(2) and fuses the multiply-add: eager JAX is an ulp away on
+# some keys)
+_jax_lamp_s = jax.jit(
+    lambda ks: jnp.clip(0.35 + 0.25 * jax.random.normal(ks, ()), 0.0, 1.0))
+
+
 def jax_render_params(family: str, key, H: int, W: int) -> dict:
     """The values JAX's ``render`` draws from `key`."""
     kf, kc1, kc2, kl = jax.random.split(key, 4)
@@ -66,7 +76,7 @@ def jax_render_params(family: str, key, H: int, W: int) -> dict:
         return (_ju(kh, 0.0, 1.0), _ju(ks, 0.0, 1.0))
 
     kh, ks = jax.random.split(jax.random.fold_in(kl, 3))
-    lamp_s = jnp.clip(0.35 + 0.25 * jax.random.normal(ks, ()), 0.0, 1.0)
+    lamp_s = _jax_lamp_s(ks)
     return {
         "field": jax_field_params(family, kf), "c1": hs(kc1), "c2": hs(kc2),
         "lx": _ju(kl, 0.0, float(W)),
@@ -131,6 +141,63 @@ def test_colour_transforms_match_jax():
         atol=1e-6)
 
 
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 + 3])
+def test_draws_equal_jax(seed):
+    """The port's draws from a key are the values JAX's render draws."""
+    for fam in TT.FAMILIES:
+        want = jax_render_params(fam, jax.random.PRNGKey(seed), 72, 96)
+        assert TT.draw_render_params(fam, 72, 96, prng.key(seed)) == want
+
+
+def test_lamp_colour_is_jax_jitted_render_lamp():
+    """The lamp's drawn hue and saturation give, bitwise, the colour JAX's
+    jitted ``_lamp_color_linear`` makes from the same key, over 2000 keys
+    (the saturation is the one value that a fused multiply-add decides)."""
+    seeds = np.arange(2000)
+    keys = jax.vmap(lambda s: jax.random.fold_in(
+        jax.random.split(jax.random.PRNGKey(s), 4)[3], 3))(
+            jnp.asarray(seeds, jnp.uint32))
+    want = np.asarray(jax.jit(jax.vmap(JT._lamp_color_linear))(keys))
+    hs = np.array([TT.draw_render_params("noise", 8, 8, prng.key(int(s)))
+                   ["lamp"] for s in seeds], np.float32)
+    colour = jax.jit(jax.vmap(lambda h, s: JT.srgb_to_linear(
+        JT.hsv_to_rgb(h, s, jnp.float32(1.0)))))
+    np.testing.assert_array_equal(np.asarray(colour(hs[:, 0], hs[:, 1])),
+                                  want)
+
+
+@pytest.mark.parametrize("seed", [1, 4])
+def test_render_and_random_texture_match_jax(seed):
+    """render(key, family) and random_texture(key) from one key, end to end
+    (72×96, the render cases' shape: JAX's compiled renders are reused)."""
+    H, W = 72, 96
+    key, jkey = prng.key(seed), jax.random.PRNGKey(seed)
+    for fam in TT.FAMILIES:
+        assert_uint8_close(TT.render(key, fam, H, W, device="cpu").numpy(),
+                           np.asarray(JT.render(jkey, fam, H, W)))
+    for s in range(seed, seed + 4):
+        assert_uint8_close(
+            TT.random_texture(prng.key(s), H, W, device="cpu").numpy(),
+            np.asarray(JT.random_texture(jax.random.PRNGKey(s), H, W)))
+
+
+def test_texture_gen_writes_jax_files(tmp_path):
+    """texture_gen --num 7 --size 96 72 --seed 0: JAX's names and images."""
+    from arap_flow_tpu.pipeline import texture_gen as JG
+    from arap_flow_tpu_torch.io.image import load_rgb
+    from arap_flow_tpu_torch.pipeline import texture_gen as TG
+
+    args = ["--num", "7", "--size", "96", "72", "--seed", "0"]
+    JG.main(["--output", str(tmp_path / "j"), *args])
+    TG.main(["--output", str(tmp_path / "t"), *args, "--device", "cpu"])
+    names = sorted(p.name for p in (tmp_path / "j").iterdir())
+    assert sorted(p.name for p in (tmp_path / "t").iterdir()) == names
+    assert len(names) == 7
+    for n in names:
+        assert_uint8_close(load_rgb(tmp_path / "t" / n),
+                           load_rgb(tmp_path / "j" / n))
+
+
 def test_texture_gen_picks_jax_families(tmp_path):
     from arap_flow_tpu.pipeline import texture_gen as JG
     from arap_flow_tpu_torch.pipeline import texture_gen as TG
@@ -147,10 +214,11 @@ def test_texture_gen_picks_jax_families(tmp_path):
     from arap_flow_tpu_torch.io.image import load_rgb
 
     img = load_rgb(tmp_path / "t" / names[0])
-    g = torch.Generator().manual_seed(5 * 100003)
     fam = names[0].split("_")[2][:-4]
     np.testing.assert_array_equal(
-        img, TT.render(fam, g, 72, 96, device="cpu").numpy())
+        img, TT.render(prng.key(5 * 100003), fam, 72, 96,
+                       device="cpu").numpy())
+    assert_uint8_close(img, load_rgb(tmp_path / "j" / names[0]))
 
 
 def test_cli_needs_cuda_by_default(tmp_path):
@@ -163,16 +231,16 @@ def test_cli_needs_cuda_by_default(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# The port's own draws: tests/test_textures.py's checks
+# The port's own renders: tests/test_textures.py's checks
 # ---------------------------------------------------------------------------
 
 
-def _gen(seed: int) -> torch.Generator:
-    return torch.Generator().manual_seed(seed)
+def _key(seed: int) -> tuple:
+    return prng.key(seed)
 
 
 def _render(seed, family, H, W):
-    return TT.render(family, _gen(seed), H, W, device="cpu").numpy()
+    return TT.render(_key(seed), family, H, W, device="cpu").numpy()
 
 
 @pytest.mark.parametrize("family", TT.FAMILIES)
@@ -190,10 +258,14 @@ def test_deterministic_and_seeded():
 
 
 def test_random_texture_draws_family_then_values():
-    g = _gen(11)
-    fam = TT.FAMILIES[int(torch.randint(0, len(TT.FAMILIES), (), generator=g))]
-    want = TT.render(fam, g, 32, 40, device="cpu")
-    got = TT.random_texture(_gen(11), 32, 40, device="cpu")
+    """The family from randint(key, 0, 7), the texture from fold_in(key, 7)
+    (JAX's random_texture)."""
+    k = _key(11)
+    fam = TT.FAMILIES[prng.randint(k, 0, len(TT.FAMILIES))]
+    assert fam == TT.FAMILIES[int(jax.random.randint(
+        jax.random.PRNGKey(11), (), 0, len(TT.FAMILIES)))]
+    want = TT.render(prng.fold_in(k, 7), fam, 32, 40, device="cpu")
+    got = TT.random_texture(_key(11), 32, 40, device="cpu")
     assert torch.equal(got, want)
 
 
@@ -235,7 +307,7 @@ def test_render_colors_are_value1_srgb():
 
 
 def _fields(family, H=96, W=128):
-    return [TT.field(family, TT.draw_params(family, _gen(s)), H, W,
+    return [TT.field(family, TT.draw_params(family, _key(s)), H, W,
                      "cpu").numpy() for s in (0, 1, 2, 3)]
 
 
@@ -292,7 +364,7 @@ def test_magic_bounded_and_varied():
 def test_field_spatial_structure():
     """Every family's field is spatially correlated, not white noise."""
     for name in TT.FAMILIES:
-        f = TT.field(name, TT.draw_params(name, _gen(9)), 96, 128,
+        f = TT.field(name, TT.draw_params(name, _key(9)), 96, 128,
                      "cpu").numpy().astype(np.float64)
         a = f[:, :-1].ravel() - f.mean()
         b = f[:, 1:].ravel() - f.mean()
@@ -302,7 +374,8 @@ def test_field_spatial_structure():
 
 
 def test_draws_within_jax_ranges():
-    """The port draws each parameter from the JAX package's range."""
+    """The port draws each parameter from the JAX package's range, and
+    draws JAX's value from the same key."""
     ranges = {"brick": {"bh": (20, 60)}, "checker": {"size": (20, 120)},
               "magic": {"scale": (60, 250), "turb": (1, 3)},
               "musgrave": {"scale": (40, 300)}, "noise": {"scale": (20, 200)},
@@ -310,7 +383,8 @@ def test_draws_within_jax_ranges():
               "wave": {"scale": (30, 150), "distort": (0, 8)}}
     for fam, rs in ranges.items():
         for s in range(20):
-            p = TT.draw_params(fam, _gen(s))
+            p = TT.draw_params(fam, _key(s))
+            assert p == jax_field_params(fam, jax.random.PRNGKey(s)), (fam, s)
             for k, (lo, hi) in rs.items():
                 assert lo <= p[k] < hi, (fam, k, p[k])
             if "salt" in p:
@@ -330,7 +404,7 @@ def cuda_device():
 def test_card_renders_the_cpu_texture(cuda_device):
     """One seed gives the same texture on the card as on the CPU."""
     for fam in TT.FAMILIES:
-        p = TT.draw_render_params(fam, 120, 200, _gen(21))
+        p = TT.draw_render_params(fam, 120, 200, _key(21))
         f_cpu = TT.field(fam, p["field"], 120, 200, "cpu")
         f_gpu = TT.field(fam, p["field"], 120, 200, cuda_device).cpu()
         assert (f_cpu - f_gpu).abs().max() <= 1e-4
