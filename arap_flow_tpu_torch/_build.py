@@ -32,6 +32,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# (time.time() when it finished, library file name) of every library this
+# process compiled, nvcc's and g++'s: a long run checks that it builds
+# nothing after its start (tools/endurance.py)
+BUILDS: list[tuple[float, str]] = []
 
 
 def nvcc_path() -> str:
@@ -87,6 +91,7 @@ def build() -> tuple[list[str], float]:
         with open(lib[: -len(".so")] + ".log", "w") as f:
             f.write(out)
         os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+        BUILDS.append((time.time(), osp.basename(lib)))
     if failed:
         raise RuntimeError("\n".join(failed))
     return libs, time.perf_counter() - t0
@@ -124,6 +129,7 @@ def build_native() -> tuple[str, float]:
         raise RuntimeError(f"g++ exited {proc.returncode} building "
                            f"{osp.basename(lib)}:\n{proc.stdout}")
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    BUILDS.append((time.time(), osp.basename(lib)))
     return lib, time.perf_counter() - t0
 
 

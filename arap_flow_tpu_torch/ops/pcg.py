@@ -17,7 +17,8 @@ Four parts:
   use by ``_build``), one launch a call, or raises. There is no fallback
   between them.
 - ``LAUNCHES``: launch counts per kernel; the wrapper adds one each time it
-  launches the CUDA kernel (one call runs all ``iters`` iterations).
+  launches the CUDA kernel (one call runs all ``iters`` iterations), and
+  ``LAUNCH_SHAPES`` the same launches by problem shape (B, H, W).
 
 The tall layout (``ARAP_TALL_KERNEL``, the TPU's ``pcg_pallas_tall`` and
 ``pcg_pallas_batched_tall``) is a template flag of the same kernel that
@@ -27,6 +28,7 @@ variable at call time. It is counted as ``pcg_fixed_tall``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import os
@@ -38,6 +40,7 @@ from ._checks import check_operand, per_problem, weight_pairs
 from .stencil import DIRS, shift
 
 LAUNCHES: dict[str, int] = {"pcg_fixed": 0, "pcg_fixed_tall": 0}
+LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 # The card the plan is made for (an H100): shared memory one block can use,
 # of which the kernel's own static arrays take under 1 KB.
@@ -292,6 +295,7 @@ def _launch(plan: PcgPlan, b, pre, s, c, vmasks, fitmask, wf2, wr2,
         )
     _raise_on("pcg_fixed", lib.pcg_error_string, err)
     LAUNCHES["pcg_fixed_tall" if tall else "pcg_fixed"] += 1
+    LAUNCH_SHAPES[(B, H, W)] += 1
     return delta
 
 

@@ -33,7 +33,8 @@ native threaded writer (``native.runtime.AsyncWriter``), unless
 
 ``--warmup`` (and ``--exec_pack``, accepted for CLI parity) runs
 ``prewarm`` before the first pair: every library built and loaded, one
-dummy solve per common bucket, one matcher call at the ``--size`` frame.
+dummy solve per common bucket (every one of the 31 crop buckets under
+``ARAP_WARMUP_FULL=1``), one matcher call at the ``--size`` frame.
 
 ``--mode sharded`` is the batched loop with each solve chunk split over a
 device mesh (``parallel.make_mesh``: every visible CUDA device, or the CPU
@@ -62,7 +63,7 @@ from ..io.constraints import filter_matches, read_matches, write_constraint_file
 from ..io.image import (load_mask, load_rgb, mask_to_arap, png_encode,
                         save_image, segment_mask_to_arap)
 from ..io.resize import resize_lanczos, resize_nearest
-from ..models.arap import ArapDeformer
+from ..models.arap import CROP_BUCKETS, ArapDeformer
 from ..ops.solver import SolverConfig
 from ..utils.config import FrameworkConfig, cli_device
 from ..utils.profiling import StageTimer
@@ -71,8 +72,17 @@ log = logging.getLogger("arap_flow_tpu_torch.para_gen")
 
 TIMER = StageTimer()
 
-# pairs per matcher call in batched mode
-MATCH_SUBBATCH = 4
+# (pairs in the chunk, seconds, end time) of each chunk the batched loop of
+# the last main_pipeline call collected: the loop's iteration that
+# collected it, from the next chunk's matcher enqueue to its products
+# written, so seconds over pairs is the loop's seconds a pair, not a pair's
+# latency from submit to write. The end time (time.time()) places each
+# chunk in the run (tools/endurance.py).
+CHUNK_STATS: list = []
+
+# pairs per matcher call in batched mode (ARAP_MATCH_SUBBATCH, read at
+# import)
+MATCH_SUBBATCH = int(os.environ.get("ARAP_MATCH_SUBBATCH", "4"))
 
 # directory names of the reference's para_gen.py:18-26
 ORGCOLOR = "orgRGB"
@@ -733,6 +743,8 @@ def _run_batched(flags, chunks, n_pairs, deformer, bgpool, device,
                 print(f"  [chunk {i}] phaseA {t1 - t0:.2f}s prep-wait "
                       f"{t2 - t1:.2f}s dispatch {t3 - t2:.2f}s "
                       f"collect+finish {t4 - t3:.2f}s", flush=True)
+            if i > 0:
+                CHUNK_STATS.append((len(chunks[i - 1]), t4 - t0, time.time()))
             inflight = disp
         if inflight is not None:
             t0 = time.perf_counter()
@@ -740,6 +752,7 @@ def _run_batched(flags, chunks, n_pairs, deformer, bgpool, device,
                                              writer)
             t4 = time.perf_counter()
             TIMER.add("chunk collect+finish", t4 - t0)
+            CHUNK_STATS.append((len(chunks[-1]), t4 - t0, time.time()))
     return triples
 
 
@@ -794,6 +807,7 @@ def main_pipeline(
     _check_flags(flags)
     device = torch.device(flags.device)
     WRITE_ERRORS = 0
+    CHUNK_STATS.clear()
     rng = np.random.default_rng(flags.seed)
     bgpool = BackgroundPool(flags.bg_dir, rng)
     deformer = ArapDeformer(fw.solver, weights=fw.weights, crop=fw.crop,
@@ -810,10 +824,13 @@ def main_pipeline(
         print(f"sharded over {mesh.shape['data']} devices")
     batched = flags.mode in ("batched", "sharded")
     if flags.warmup and pairs:
+        # ARAP_WARMUP_FULL=1: every one of the 31 crop buckets instead of
+        # the 13 common ones (JAX para_gen.py:848-856)
+        full = os.environ.get("ARAP_WARMUP_FULL", "") not in ("", "0", "off")
         # --size is (w, h): the matcher warms only when the frame shape is
         # known up front, as in the JAX package
         prewarm(deformer.cfg, deformer.weights,
-                batched=batched,
+                buckets=CROP_BUCKETS if full else None, batched=batched,
                 frame_shape=(flags.size[1], flags.size[0]) if flags.size
                 else None,
                 match_downscale=flags.match_downscale, device=device,
@@ -914,7 +931,8 @@ def parse_args(argv=None) -> PipelineFlags:
     parser.add_argument("--warmup", action="store_true",
                         help="before the first pair, build and load every "
                         "library and run one dummy solve per common bucket "
-                        "(and one matcher call with --size)")
+                        "(every bucket under ARAP_WARMUP_FULL=1) and one "
+                        "matcher call with --size")
     parser.add_argument("--match_downscale", type=int, default=1,
                         choices=[1, 2, 4],
                         help="run the matcher on a 2x2^k-pooled image")

@@ -178,10 +178,61 @@ Phases, each reported on its own line; any failure exits non-zero:
    10f. ``run_tasks`` on phase 3's tasks and one full-frame fallback at
         CUT: bitwise equal to a BatchRunner fed the same.
 
+11. the remaining entry points, each as a user types it
+   (``arap_flow_tpu_torch.__main__.main``, in this process) on the default
+   --device cuda, at 19x8x400:
+   11a. ``generate --phases match convert deform bg`` on phase 5's tree (4
+        pairs; generate solves each frame whole): every product and list
+        line written, each object's median |flow - t| < 1 px, the median
+        |flow - phase 5's batched flow| over the objects < 0.05 px, the
+        launches of zncc_search and pcg_fixed as predicted (one matcher
+        call and 152 PCG calls a pair).
+   11b. ``run_arap --input ROOT --passes clean final`` on an MPI-Sintel-
+        style tree at 1024x436 (2 frames a pass; two textured ellipses, one
+        230x940, wider than any crop bucket, with translation constraints
+        every 8 px; run_arap solves each frame whole, the 4 frames as one
+        batch), then the same jobs through ``run_arap --list``: each
+        object's median |flow - t| < 1 px, the two runs' products
+        byte-identical, pcg_fixed launched.
+   11c. ``run_warp --backend device`` and ``--backend host`` over phase
+        5's output tree (as ROOT/fd1): every product bitwise
+        ``warp_tool.warp_image``'s on the same files, the two backends'
+        wMasks agreeing on >= 98% of the pixels (printed); and
+        ``python3 -m arap_flow_tpu_torch warp`` in a subprocess on an 11b
+        frame and its flow (started before the run_warp checks, waited for
+        after 11e), bitwise the in-process call's.
+   11d. ``texture_gen --num 7 --seed TEXGEN_SEED --size 1280 720``: 7
+        files, the first one's family JAX's and its 64x96 render's
+        checksums JAX's (TEXGEN_JAX_FIRST, recorded as 8a's) within 8a's
+        tolerance, the file bitwise the card's render of its key.
+   11e. the matcher on a sub-batch of 4 Sintel-shaped pairs (11b's frames)
+        gives the shapes of its zncc_search calls; at each, the kernel
+        against the plain version on phase 4's inputs with phase 4's gates.
+
+12. the crop-bucket ladder: each of the 31 CROP_BUCKETS at B = 1 and at
+   B = max_chunk_for (24 at every bucket), and the full frames 436x1024
+   (Sintel) and 480x854 at B = 1 (a fallback solves alone): the PCG plans
+   of both layouts and the fused plan (a plan with 0 active clusters
+   fails); ``pcg_fixed`` against ``pcg_fixed_plain``, 1 iteration within
+   1e-4 and two 40-iteration runs bitwise equal (B = 1's converged check
+   of phase 2 is cut, LADDER_CONVERGED, to keep the smoke within 300 s);
+   at the largest B the tall layout within 1e-5 of the standard
+   one; ``anneal_solve_fused`` against its plain version at 1x1x1 within
+   1e-4 at both B. Prints the distinct plans and the phase's seconds.
+
+13. the endurance run, cut: ``tools/endurance.py`` in this process at
+   --pairs 48 --block 4 (its warm cycle of one size cycle, 48 pairs, then
+   48 measured pairs), 19x8x400: the tool's flow checks on the in-block
+   pairs, at most 2 of 48 pairs dropped, no build during the measured
+   run, no PCG shape the warm cycle did not solve, RSS and
+   memory_reserved not growing, both kernels launched; prints pairs/s,
+   p50/p95 seconds a pair, the plan caches' sizes and the (B, H, W) the
+   run solved.
+
 The last line is the JSON device record; the line before it lists the
-kernels with their launch counts (phase 5's pipeline plus phase 10's
-sharded pipeline, mesh runner, pyramid and run_tasks), errors, times and
-bounds.
+kernels with their launch counts (phase 5's pipeline, phase 10's sharded
+pipeline, mesh runner, pyramid and run_tasks, phase 11's generate and
+run_arap, and phase 13's endurance run), errors, times and bounds.
 """
 
 from __future__ import annotations
@@ -189,6 +240,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -322,19 +374,21 @@ def pcg_problem(B: int, H: int, W: int, seed: int, device):
     from arap_flow_tpu_torch.ops import energy as E
     from arap_flow_tpu_torch.ops.solver import guarded_invert
 
+    # the problems share the region and the constraints; each has its own
+    # state
+    mask = np.full((H, W), 255, np.uint8)
+    mask[2 : H - 2, 8 : W - 8] = 0
+    ys, xs = np.mgrid[3 : H - 3 : 4, 10 : W - 10 : 12]
+    cons = np.stack([xs.ravel(), ys.ravel(), xs.ravel() + 2,
+                     ys.ravel() - 1], 1).astype(np.int32)
+    ops = E.build_operands(mask, add_border_pins(cons, W, H), device=device)
+    x0 = E.init_state(ops)
+    cimg = E.anneal_constraints(ops, 1.0)
     probs = []
     for k in range(B):
         rng = np.random.default_rng(seed + k)
-        mask = np.full((H, W), 255, np.uint8)
-        mask[2 : H - 2, 8 : W - 8] = 0
-        ys, xs = np.mgrid[3 : H - 3 : 4, 10 : W - 10 : 12]
-        cons = np.stack([xs.ravel(), ys.ravel(), xs.ravel() + 2,
-                         ys.ravel() - 1], 1).astype(np.int32)
-        ops = E.build_operands(mask, add_border_pins(cons, W, H),
-                               device=device)
-        x = E.init_state(ops) + 0.3 * torch.as_tensor(
+        x = x0 + 0.3 * torch.as_tensor(
             rng.standard_normal((3, H, W)), dtype=torch.float32, device=device)
-        cimg = E.anneal_constraints(ops, 1.0)
         s, c = E.trig(x)
         jtf, diag = E.jtf_and_diag(x, ops, cimg)
         probs.append((ops, -jtf, guarded_invert(diag), s, c))
@@ -435,7 +489,7 @@ def check_pcg_layout(ops, args, tall: bool, plain1, plain_n, shape):
     return k1, kn, float((k1 - plain1).abs().max()), res, dn
 
 
-def plan_line(B: int, H: int, W: int) -> str:
+def plan_line(B: int, H: int, W: int, label: str = "phase 2 plan") -> str:
     """The cluster kernel's plan at (B, H, W) in both layouts and its active
     clusters on this card."""
     import torch
@@ -450,7 +504,7 @@ def plan_line(B: int, H: int, W: int) -> str:
         raise AssertionError(f"no cluster of {plans} fits the card")
     plan = plans[0]
     tall = "" if plans[1] == plan else f", tall cluster {plans[1].cluster}"
-    return (f"phase 2 plan B={B} {H}x{W}: cluster {plan.cluster}, "
+    return (f"{label} B={B} {H}x{W}: cluster {plan.cluster}, "
             f"{plan.rows_per_cta} rows a CTA, "
             f"{'resident' if plan.resident else 'streamed'}, "
             f"{plan.groups} groups in shared memory, {plan.smem_bytes} B; "
@@ -541,7 +595,7 @@ def phase_kernel(shapes, call_shapes):
         _, args = pcg_problem(B, H, W, seed=7, device=dev)
         ms = cuda_ms(lambda: pcg_fixed(*args, 400, tall=False))
         tall_ms = cuda_ms(lambda: pcg_fixed(*args, 400, tall=True))
-        plain_ms = cuda_ms(lambda: pcg_fixed_plain(*args, 400), reps=3)
+        plain_ms = cuda_ms(lambda: pcg_fixed_plain(*args, 400), reps=1)
         call_ms[(B, H, W)] = (ms, plain_ms, tall_ms)
         bms, by = pcg_bound(B, H, W)
         say(f"phase 2 one 400-iteration call at B={B} {H}x{W}: cluster "
@@ -1211,9 +1265,11 @@ def tree_digest(out: str, lines) -> dict:
     return got
 
 
-def phase_pipeline(smi: str, profiled: bool = False):
+def phase_pipeline(smi: str, profiled: bool = False, keep: str | None = None):
     """The dataset pipeline on the card; returns its kernel launches, the
-    cold run's product digest (tree_digest) and its seconds per pair."""
+    cold run's product digest (tree_digest) and its seconds per pair. With
+    `keep`, the input tree and the cold run's output tree are copied to
+    `keep`/in and `keep`/out (phase 11 reads them)."""
     from arap_flow_tpu_torch.ops.energy import ArapWeights
     from arap_flow_tpu_torch.ops.solver import SolverConfig
     from arap_flow_tpu_torch.pipeline import para_gen
@@ -1241,6 +1297,10 @@ def phase_pipeline(smi: str, profiled: bool = False):
             raise AssertionError(f"too few constraints per object: {kept}")
         check_pipeline_products(inp, os.path.join(tmp, "cold"), lines)
         digest = tree_digest(os.path.join(tmp, "cold"), lines)
+        if keep is not None:
+            shutil.copytree(inp, os.path.join(keep, "in"))
+            shutil.copytree(os.path.join(tmp, "cold"),
+                            os.path.join(keep, "out"))
 
         para_gen.TIMER = StageTimer()
         zero_counts()
@@ -1296,7 +1356,8 @@ FUSED_UNIT = (1, 1, 400)
 FUSED_MAX_DX = 0.01
 
 
-def fused_plan_line(B: int, H: int, W: int) -> str:
+def fused_plan_line(B: int, H: int, W: int,
+                    label: str = "phase 6 plan") -> str:
     """The fused kernel's plan at (B, H, W) and its active clusters on this
     card."""
     import torch
@@ -1306,7 +1367,7 @@ def fused_plan_line(B: int, H: int, W: int) -> str:
     dev = torch.device("cuda", 0)
     plan = card_plan(B, H, W, dev)
     act = active_clusters(plan, B, dev)
-    line = (f"phase 6 plan B={B} {H}x{W}: cluster {plan.cluster}, "
+    line = (f"{label} B={B} {H}x{W}: cluster {plan.cluster}, "
             f"{plan.rows_per_cta} rows a CTA, "
             f"{'resident' if plan.resident else 'streamed'}, "
             f"{plan.groups} groups in shared memory, {plan.smem_bytes} B; "
@@ -1385,7 +1446,7 @@ def phase_fused(smi: str, call_ms):
     unit = sched(*FUSED_UNIT)
     unit_ms = cuda_ms(lambda: anneal_solve_fused(batch, unit))
     unit_plain = cuda_ms(lambda: anneal_solve_fused_plain(batch, unit),
-                         reps=3)
+                         reps=1)
     bms, by = fused_bound(*PIPE_PCG_SHAPE, *FUSED_UNIT)
     say(f"phase 6 fused {'x'.join(map(str, FUSED_UNIT))} at B=4 192x256: "
         f"kernel {unit_ms:.3f} ms, plain {unit_plain:.3f} ms, bound "
@@ -1396,7 +1457,7 @@ def phase_fused(smi: str, call_ms):
     # 16x128 (16 CTAs of one row) shows the synchronisation's own cost
     for shape in FUSED_TIMED:
         b = batches[shape]
-        ms = cuda_ms(lambda: anneal_solve_fused(b, full), reps=3)
+        ms = cuda_ms(lambda: anneal_solve_fused(b, full), reps=1)
         bms, by = fused_bound(*shape, full.num_anneal, full.gn_iters,
                               full.max_pcg_iters)
         line = (f"phase 6 fused {label} at B={shape[0]} {shape[1]}x"
@@ -2850,6 +2911,539 @@ def phase_run_tasks(smi: str, probs, tasks, dev) -> int:
     return n
 
 
+# Phase 11: the remaining entry points, each run as a user types it
+# (``arap_flow_tpu_torch.__main__.main``) on the default --device cuda.
+SINTEL_H, SINTEL_W = 436, 1024  # MPI-Sintel's frame
+SINTEL_SEQ = "alley_1"
+SINTEL_PASSES = ("clean", "final")
+SINTEL_FRAMES = 2  # frames a pass
+SINTEL_OBJECTS = (  # (centre y, x), (radius y, x), (dx, dy) a frame
+    ((140, 512), (115, 470), (7, -4)),  # a 230x940 box: wider than any bucket
+    ((350, 300), (60, 100), (-6, 5)),
+)
+# texture_gen's seed in 11d, the first image's family and the checksums
+# (texture_sums) of that family's 64x96 render from the first image's key,
+# prng.key(seed * 100003), recorded from the JAX package as TEX_JAX_SUMS
+# (tests/test_torch_smoke_constants.py)
+TEXGEN_SEED = 5
+TEXGEN_JAX_FIRST = ("noise", (3133716, 393818292))
+
+
+def cli(*argv) -> int:
+    """One command of ``python -m arap_flow_tpu_torch``, in this process."""
+    from arap_flow_tpu_torch.__main__ import main as tool_main
+
+    return tool_main([str(a) for a in argv])
+
+
+def median_motion_error(u, v, sel, motion) -> float:
+    dx, dy = motion
+    return float(np.median(np.hypot(u[sel] - dx, v[sel] - dy)))
+
+
+def phase_generate(smi: str, keep: str) -> dict:
+    """11a: ``generate --phases match convert deform bg`` on phase 5's tree
+    (kept by phase 5 under `keep`). Returns the run's launches."""
+    import torch
+
+    from arap_flow_tpu_torch.io.flo import flow_read
+    from arap_flow_tpu_torch.io.image import load_mask
+    from arap_flow_tpu_torch.ops.matching import clamp_match_params, zncc_calls
+    from arap_flow_tpu_torch.ops.solver import SolverConfig
+
+    inp, ref, out = (os.path.join(keep, d) for d in ("in", "out", "generate"))
+    n_pairs = PIPE_FRAMES - 1
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = cli("generate", "--input", inp, "--output", out, "--phases",
+             "match", "convert", "deform", "bg")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    cfg = SolverConfig()
+    want = (n_pairs * zncc_calls(clamp_match_params(FRAME_H, FRAME_W)[1]),
+            n_pairs * cfg.num_anneal * cfg.gn_iters)
+    with open(os.path.join(out, "all_files.list")) as f:
+        listed = f.read().splitlines()
+    missing = [p for t in range(n_pairs) for d, ext in (
+        ("Flow", "flo"), ("inpRGB", "png"), ("inpMasks", "png"),
+        ("wRGB", "png"), ("wMasks", "png"), ("tmpCnstr", "txt"))
+        if not os.path.exists(p := os.path.join(out, d, "seq0",
+                                                f"{t:05d}.{ext}"))]
+    errs, gaps = [], []
+    for t in range(n_pairs):
+        name = f"{t:05d}"
+        mk = load_mask(os.path.join(inp, "orgMasks", "seq0", name + ".png"))
+        u, v = flow_read(os.path.join(out, "Flow", "seq0", name + ".flo"))
+        ru, rv = flow_read(os.path.join(ref, "Flow", "seq0", name + ".flo"))
+        for k, (_, _, motion) in enumerate(PIPE_OBJECTS):
+            errs.append(median_motion_error(u, v, mk == k + 1, motion))
+        obj = mk != 0
+        gaps.append(float(np.median(np.hypot(u[obj] - ru[obj],
+                                             v[obj] - rv[obj]))))
+    line = (f"phase 11a generate --phases match convert deform bg on phase "
+            f"5's tree: exit {rc}, {secs:.3f} s ({secs / n_pairs:.3f} s a "
+            f"pair, full-frame solves); {len(listed)} list lines, missing "
+            f"products {missing}; median |flow - t| by pair and object "
+            f"{[round(e, 4) for e in errs]} px; median |flow - phase 5's "
+            f"batched flow| {[round(g, 4) for g in gaps]} px; launches "
+            f"zncc_search {launches['zncc_search']} (predicted {want[0]}), "
+            f"pcg_fixed {launches['pcg_fixed']} (predicted {want[1]}) ({smi})")
+    say(line)
+    if not (rc == 0 and len(listed) == n_pairs and not missing
+            and max(errs) < 1.0 and max(gaps) < 0.05
+            and (launches["zncc_search"], launches["pcg_fixed"]) == want):
+        raise AssertionError(line)
+    return launches
+
+
+def sintel_path(root: str, kind: str, pas: str, i: int, ext: str) -> str:
+    base = root if kind == "frames" else os.path.join(root, kind)
+    return os.path.join(base, pas, SINTEL_SEQ, f"frame_{i:04d}.{ext}")
+
+
+def make_sintel_tree(root: str) -> None:
+    """An MPI-Sintel-style tree at 1024x436: ROOT/{clean,final}/SEQ/
+    frame_XXXX.png, the ARAP masks ROOT/masks/{pass}/SEQ/frame_XXXX.png (0
+    on the two objects, 255 elsewhere) and ROOT/cnstr/{pass}/SEQ/
+    frame_XXXX.txt: a constraint every 8 px inside each object, moving it
+    by its translation. The final pass is the clean one darkened, with
+    noise."""
+    from arap_flow_tpu_torch.io.constraints import write_constraint_file
+    from arap_flow_tpu_torch.io.image import save_image
+
+    H, W = SINTEL_H, SINTEL_W
+    texs = [rgb_texture(H, W, 40 + k) for k in range(len(SINTEL_OBJECTS))]
+    bg = rgb_texture(H, W, 50) // 3
+    yy, xx = np.mgrid[0:H, 0:W]
+    ys, xs = np.mgrid[0:H:8, 0:W:8]
+    rng = np.random.default_rng(51)
+    for i in range(1, SINTEL_FRAMES + 1):
+        img = bg.copy()
+        mask = np.full((H, W), 255, np.uint8)
+        cons = []
+        for k, ((cy, cx), (ry, rx), (dx, dy)) in enumerate(SINTEL_OBJECTS):
+            cy, cx = cy + dy * (i - 1), cx + dx * (i - 1)
+            ob = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0
+            img[ob] = texs[k][(yy[ob] - dy * (i - 1)) % H,
+                              (xx[ob] - dx * (i - 1)) % W]
+            mask[ob] = 0
+            inner = ((ys - cy) / ry) ** 2 + ((xs - cx) / rx) ** 2 < 0.8
+            cons += [(x, y, x + dx, y + dy)
+                     for y, x in zip(ys[inner], xs[inner])]
+        final = np.clip(img * 0.8 + rng.normal(0, 4, img.shape), 0,
+                        255).astype(np.uint8)
+        for pas, frame in zip(SINTEL_PASSES, (img, final)):
+            for kind, arr in (("frames", frame), ("masks", mask)):
+                path = sintel_path(root, kind, pas, i, "png")
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                save_image(path, arr)
+            path = sintel_path(root, "cnstr", pas, i, "txt")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            write_constraint_file(path, np.array(cons, np.int32))
+
+
+def phase_run_arap(smi: str, keep: str) -> dict:
+    """11b: ``run_arap --input ROOT --passes clean final`` on a Sintel-style
+    tree, then the same jobs through ``run_arap --list``. Returns the
+    launches of both runs."""
+    import torch
+
+    from arap_flow_tpu_torch.io.flo import flow_read
+    from arap_flow_tpu_torch.io.image import load_mask
+
+    root = os.path.join(keep, "sintel")
+    make_sintel_tree(root)
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = cli("run_arap", "--input", root, "--passes", *SINTEL_PASSES)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    jobs, lines = [], []
+    for pas in SINTEL_PASSES:
+        for i in range(1, SINTEL_FRAMES + 1):
+            ins = [sintel_path(root, k, pas, i, e) for k, e in (
+                ("frames", "png"), ("masks", "png"), ("cnstr", "txt"))]
+            outs = []
+            for d in ("flow_arap", "list_out"):
+                stem = os.path.join(root, d, pas, SINTEL_SEQ,
+                                    f"frame_{i:04d}")
+                outs.append([stem + ".flo", stem + "_wRGB.png",
+                             stem + "_wMask.png"])
+            os.makedirs(os.path.dirname(outs[1][0]), exist_ok=True)
+            jobs.append((ins, outs))
+            lines.append(" ".join(ins + outs[1]))
+    listfile = os.path.join(root, "jobs.txt")
+    with open(listfile, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    t0 = time.perf_counter()
+    rc_list = cli("run_arap", "--list", listfile)
+    torch.cuda.synchronize()
+    secs_list = time.perf_counter() - t0
+    launches = read_counts()
+    same = all(_read_bytes(a) == _read_bytes(b)
+               for _, (o1, o2) in jobs for a, b in zip(o1, o2))
+    errs = []
+    for (rgb, mask, _), (o1, _) in jobs:
+        u, v = flow_read(o1[0])
+        obj = load_mask(mask) == 0
+        yy, xx = np.mgrid[0:SINTEL_H, 0:SINTEL_W]
+        i = int(os.path.basename(rgb)[6:10])
+        for (cy, cx), (ry, rx), (dx, dy) in SINTEL_OBJECTS:
+            cy, cx = cy + dy * (i - 1), cx + dx * (i - 1)
+            sel = obj & (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0)
+            errs.append(median_motion_error(u, v, sel, (dx, dy)))
+    n = len(jobs)
+    line = (f"phase 11b run_arap on a {SINTEL_W}x{SINTEL_H} Sintel-style "
+            f"tree ({n} frames, {'/'.join(SINTEL_PASSES)}; each frame solved "
+            f"whole: run_arap does not crop): --input exit {rc} in "
+            f"{secs:.3f} s, --list exit {rc_list} in {secs_list:.3f} s; "
+            f"products byte-identical: {same}; median |flow - t| by frame "
+            f"and object {[round(e, 4) for e in errs]} px; launches "
+            f"pcg_fixed {launches['pcg_fixed']} ({smi})")
+    say(line)
+    if not (rc == 0 and rc_list == 0 and same and max(errs) < 1.0
+            and launches["pcg_fixed"] > 0):
+        raise AssertionError(line)
+    return launches
+
+
+def phase_run_warp(smi: str, keep: str) -> None:
+    """11c: ``run_warp`` over phase 5's output tree (as fd1 of a root) with
+    --backend device and host, each product bitwise warp_tool.warp_image's
+    on the same files, the two backends' wMasks agreeing on >= 98% of
+    pixels."""
+    import torch
+
+    from arap_flow_tpu_torch.io.image import load_mask
+    from arap_flow_tpu_torch.pipeline.run_warp import scan_jobs
+    from arap_flow_tpu_torch.pipeline.warp_tool import warp_image
+
+    dev = torch.device("cuda", 0)
+    root = os.path.join(keep, "warp")
+    shutil.copytree(os.path.join(keep, "out"), os.path.join(root, "fd1"))
+    jobs = scan_jobs(root, [1])
+    ref = os.path.join(keep, "warp_ref")
+    os.makedirs(ref)
+    masks, same = {}, True
+    for backend in ("device", "host"):
+        rc = cli("run_warp", "--root", root, "--fd", 1, "--backend", backend)
+        if rc != 0:
+            raise AssertionError(f"phase 11c run_warp --backend {backend} "
+                                 f"exited {rc}")
+        for j, (rgb, msk, flo, wrgb, wmsk) in enumerate(jobs):
+            r_rgb = os.path.join(ref, f"{backend}{j}_w.png")
+            r_msk = os.path.join(ref, f"{backend}{j}_m.png")
+            warp_image(rgb, msk, flo, r_rgb, r_msk,
+                       device=dev if backend == "device" else None,
+                       backend=backend)
+            same &= (_read_bytes(wrgb) == _read_bytes(r_rgb)
+                     and _read_bytes(wmsk) == _read_bytes(r_msk))
+            masks.setdefault(backend, []).append(load_mask(wmsk))
+    shares = [float((a == b).mean())
+              for a, b in zip(masks["device"], masks["host"])]
+    line = (f"phase 11c run_warp --backend device and host over phase 5's "
+            f"{len(jobs)} flows: products bitwise warp_image's: {same}; "
+            f"device and host wMasks agree on {[round(s, 6) for s in shares]}"
+            f" of the pixels ({smi})")
+    say(line)
+    if not (same and len(jobs) == PIPE_FRAMES - 1 and min(shares) >= 0.98):
+        raise AssertionError(line)
+
+
+def start_warp_cli(keep: str):
+    """11c: start ``python3 -m arap_flow_tpu_torch warp`` in a subprocess
+    on 11b's first clean Sintel frame and its flow (it runs while the
+    phases after it do; ``check_warp_cli`` waits for it). Returns (the
+    process, its arguments and outputs, the start time)."""
+    sintel = os.path.join(keep, "sintel")
+    args = [sintel_path(sintel, "frames", "clean", 1, "png"),
+            sintel_path(sintel, "masks", "clean", 1, "png"),
+            os.path.join(sintel, "flow_arap", "clean", SINTEL_SEQ,
+                         "frame_0001.flo")]
+    outs = [os.path.join(keep, n) for n in ("sub_w.png", "sub_m.png",
+                                            "in_w.png", "in_m.png")]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "arap_flow_tpu_torch", "warp", *args,
+         *outs[:2]], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return proc, args, outs, time.perf_counter()
+
+
+def check_warp_cli(smi: str, started) -> None:
+    """11c: the subprocess's products bitwise the in-process
+    ``warp_image``'s on the same files."""
+    import torch
+
+    from arap_flow_tpu_torch.pipeline.warp_tool import warp_image
+
+    proc, args, outs, t0 = started
+    try:
+        out, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 11c python -m arap_flow_tpu_torch warp "
+                             f"exited {proc.returncode}:\n{out[-3000:]}")
+    warp_image(*args, *outs[2:], device=torch.device("cuda", 0))
+    same = (_read_bytes(outs[0]) == _read_bytes(outs[2])
+            and _read_bytes(outs[1]) == _read_bytes(outs[3]))
+    line = (f"phase 11c python -m arap_flow_tpu_torch warp on a "
+            f"{SINTEL_W}x{SINTEL_H} Sintel frame in a subprocess (done "
+            f"{secs:.2f} s after its start, beside 11c-11e) bitwise the "
+            f"in-process call: {same} ({smi})")
+    say(line)
+    if not same:
+        raise AssertionError(line)
+
+
+def phase_texture_gen(smi: str, keep: str) -> None:
+    """11d: ``texture_gen --num 7 --seed TEXGEN_SEED --size 1280 720`` on
+    the card: 7 files; the first one's family JAX's, its 64x96 render's
+    checksums JAX's (TEXGEN_JAX_FIRST) within 8a's tolerance, and the file
+    bitwise the same key's render on the card."""
+    import torch
+
+    from arap_flow_tpu_torch.io.image import load_rgb
+    from arap_flow_tpu_torch.ops import textures
+    from arap_flow_tpu_torch.utils import prng
+
+    dev = torch.device("cuda", 0)
+    out = os.path.join(keep, "textures")
+    t0 = time.perf_counter()
+    rc = cli("texture_gen", "--output", out, "--num", 7, "--seed",
+             TEXGEN_SEED, "--size", 1280, 720)
+    secs = time.perf_counter() - t0
+    files = sorted(os.listdir(out))
+    fam, want = TEXGEN_JAX_FIRST
+    key = prng.key(TEXGEN_SEED * 100003)
+    got = texture_sums(textures.render(key, fam, 64, 96,
+                                       device=dev).cpu().numpy())
+    n = 64 * 96 * 3
+    first = load_rgb(os.path.join(out, files[0])) if files else None
+    same = first is not None and np.array_equal(
+        first, textures.render(key, fam, 720, 1280, device=dev).cpu().numpy())
+    line = (f"phase 11d texture_gen --num 7 --seed {TEXGEN_SEED} --size 1280 "
+            f"720: exit {rc}, {len(files)} files in {secs:.3f} s "
+            f"({files[:1]}...); the first one's 64x96 render checksums "
+            f"{got}, JAX's {want} (equal: {got == want}); the file bitwise "
+            f"the card's render of its key: {same} ({smi})")
+    say(line)
+    if not (rc == 0 and len(files) == 7 and files[0].endswith(f"_{fam}.png")
+            and abs(got[0] - want[0]) <= n // 1000
+            and abs(got[1] - want[1]) <= 251 * (n // 1000) and same):
+        raise AssertionError(line)
+
+
+def phase_sintel_zncc(smi: str, keep: str) -> None:
+    """11e: the matcher on a sub-batch of 4 Sintel-shaped pairs (11b's
+    frames) records the shapes of its zncc_search calls; at each, the
+    kernel against the plain version on phase 4's inputs with phase 4's
+    gates."""
+    import torch
+
+    from arap_flow_tpu_torch.io.image import load_rgb
+    from arap_flow_tpu_torch.ops import matching
+    from arap_flow_tpu_torch.ops.zncc import zncc_search, zncc_search_plain
+
+    dev = torch.device("cuda", 0)
+    sintel = os.path.join(keep, "sintel")
+    frames = {(p, i): load_rgb(sintel_path(sintel, "frames", p, i, "png"))
+              for p in SINTEL_PASSES for i in (1, 2)}
+    pairs = [(frames[(p, 1)], frames[(p, 2)]) for p in SINTEL_PASSES]
+    pairs += [(b, a) for a, b in pairs]
+    shapes = []
+
+    def recorder(p1, p2, radius, *a, **k):
+        shapes.append((p1.shape[0] if p1.dim() == 3 else 1,
+                       p2.shape[0] if p2.dim() == 3 else 1,
+                       *p1.shape[-2:], int(radius)))
+        return zncc_search(p1, p2, radius, *a, **k)
+
+    matching.zncc_search = recorder
+    try:
+        for h in matching.match_images_dispatch_multi(pairs, radius=100,
+                                                      device=dev):
+            matching.match_images_fetch(h)
+    finally:
+        matching.zncc_search = zncc_search
+    for N1, N2, H, W, r in shapes:
+        a, b = zncc_inputs(N1, N2, H, W, r, seed=H + W + r)
+        p1, p2 = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+        ku, kv, ks = zncc_search(p1, p2, r)
+        ku2, kv2, ks2 = zncc_search(p1, p2, r)
+        pu, pv, ps = zncc_search_plain(p1, p2, r)
+        torch.cuda.synchronize()
+        repeat = (torch.equal(ku, ku2) and torch.equal(kv, kv2)
+                  and torch.equal(ks, ks2))
+        err = float((ks - ps).abs().max())
+        differ = (ku != pu) | (kv != pv)
+        agree = 1.0 - float(differ.float().mean())
+        at_k = plain_score_at(p1, p2, r, ku, kv, differ)
+        tie = float((at_k[differ] - ps[differ]).abs().max()) if bool(
+            differ.any()) else 0.0
+        line = (f"phase 11e zncc at the matcher's Sintel shape {N1}->{N2}x"
+                f"{H}x{W} r={r}: max|score d| {err:.3g}; argmax agreement "
+                f"{agree:.6f}, largest plain score gap where they differ "
+                f"{tie:.3g}; bitwise repeat {repeat} ({smi})")
+        say(line)
+        if not (repeat and err <= 2e-4 and agree >= 0.99 and tie <= 2e-4):
+            raise AssertionError(line)
+    if len(shapes) != 4 or shapes[-1][2:4] != (SINTEL_H, SINTEL_W):
+        raise AssertionError(f"phase 11e: the matcher's searches {shapes}")
+
+
+# Phase 12: every crop bucket at B = 1 and at the pipeline's largest chunk
+# (max_chunk_for: 24 at every bucket), and the two full frames a fallback
+# solves alone (at B = 1).
+LADDER_FRAMES = ((SINTEL_H, SINTEL_W), (FRAME_H, FRAME_W))
+LADDER_REPEAT_ITERS = 40  # the bitwise repeat at B = 24 and the tall check
+# B = 1's CONVERGED_ITERS check at every shape, cut (printed): with it the
+# whole smoke took 299.5 s on an H100 80GB HBM3 at 700 W, at the edge of
+# its 300 s; phase 2 holds the same check at 11 shapes
+LADDER_CONVERGED = False
+
+
+def phase_ladder(smi: str) -> None:
+    """12: for each shape the plans (both PCG layouts, the fused kernel;
+    none may have 0 active clusters), then the PCG kernel against its plain
+    version (1 iteration within 1e-4, two runs bitwise; at B = 1 phase 2's
+    converged check where LADDER_CONVERGED), the tall layout within 1e-5
+    of the standard one at
+    the largest B, and the fused kernel against its plain version at
+    1x1x1 within 1e-4 at both B."""
+    import torch
+
+    from arap_flow_tpu_torch.models.arap import CROP_BUCKETS
+    from arap_flow_tpu_torch.ops import fused_solver as F
+    from arap_flow_tpu_torch.ops import pcg as TP
+    from arap_flow_tpu_torch.ops.energy import ArapOperands
+    from arap_flow_tpu_torch.ops.solver import SolverConfig
+    from arap_flow_tpu_torch.pipeline.batch import max_chunk_for
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    unit = SolverConfig(num_anneal=1, gn_iters=1, max_pcg_iters=1,
+                        pcg_iters=1.0)
+    shapes = [(H, W, max_chunk_for((H, W))) for H, W in CROP_BUCKETS]
+    shapes += [(H, W, 1) for H, W in LADDER_FRAMES]
+    if not LADDER_CONVERGED:
+        say("phase 12 cut: B = 1's converged check skipped (the smoke's "
+            "time limit)")
+    plans = set()
+    worst = {"pcg": 0.0, "tall": 0.0, "fused": 0.0}
+    for H, W, Bmax in shapes:
+        for B in sorted({1, Bmax}):
+            say(plan_line(B, H, W, "phase 12 plan"))
+            say(fused_plan_line(B, H, W, "phase 12 fused plan"))
+            plans |= {("pcg", TP.card_plan(B, H, W, False, dev)),
+                      ("tall", TP.card_plan(B, H, W, True, dev)),
+                      ("fused", F.card_plan(B, H, W, dev))}
+        ops, args = pcg_problem(Bmax, H, W, seed=H + 3 * W, device=dev)
+        batch = stack_operands(ops)
+        notes = []
+        for B in sorted({1, Bmax}):
+            a = tuple(t[:B] for t in args)
+            k1 = TP.pcg_fixed(*a, 1, tall=False)
+            p1 = TP.pcg_fixed_plain(*a, 1)
+            ka = TP.pcg_fixed(*a, LADDER_REPEAT_ITERS, tall=False)
+            kb = TP.pcg_fixed(*a, LADDER_REPEAT_ITERS, tall=False)
+            torch.cuda.synchronize()
+            d1 = float((k1 - p1).abs().max())
+            torch.testing.assert_close(k1, p1, rtol=1e-4, atol=1e-4)
+            if not torch.equal(ka, kb):
+                raise AssertionError(f"phase 12 PCG kernel not bitwise "
+                                     f"repeatable at B={B} {H}x{W}")
+            worst["pcg"] = max(worst["pcg"], d1)
+            note = f"B={B}: PCG 1-iter max|d| {d1:.3g}"
+            if B == 1 and LADDER_CONVERGED:
+                pn = TP.pcg_fixed_plain(*a, CONVERGED_ITERS)
+                _, _, _, res, dn = check_pcg_layout(ops[:1], a, False, p1,
+                                                    pn, (1, H, W))
+                note += (f", {CONVERGED_ITERS}-iter residual/|b| {res:.3g} "
+                         f"max|d| {dn:.3g}")
+            if B == Bmax:
+                t1 = TP.pcg_fixed(*a, 1, tall=True)
+                ta = TP.pcg_fixed(*a, LADDER_REPEAT_ITERS, tall=True)
+                dt = max(float((t1 - k1).abs().max()),
+                         float((ta - ka).abs().max()))
+                if not dt <= 1e-5:
+                    raise AssertionError(f"phase 12 tall and standard "
+                                         f"layouts differ by {dt} at B={B} "
+                                         f"{H}x{W}")
+                worst["tall"] = max(worst["tall"], dt)
+                note += f", tall vs standard {dt:.3g}"
+            sub = ArapOperands(**{f: v[:B] for f, v in vars(batch).items()})
+            fk = F.anneal_solve_fused(sub, unit)
+            fp = F.anneal_solve_fused_plain(sub, unit)
+            df = float((fk - fp).abs().max())
+            if not df < 1e-4:
+                raise AssertionError(f"phase 12 fused kernel vs plain at "
+                                     f"1x1x1, B={B} {H}x{W}: max|dx| {df}")
+            worst["fused"] = max(worst["fused"], df)
+            notes.append(note + f", fused 1x1x1 max|dx| {df:.3g}")
+        say(f"phase 12 {H}x{W}: " + "; ".join(notes))
+    kinds = {k: sum(1 for kind, _ in plans if kind == k)
+             for k in ("pcg", "tall", "fused")}
+    say(f"phase 12 bucket ladder: {len(CROP_BUCKETS)} buckets at B = 1 and "
+        f"B = max_chunk_for, {len(LADDER_FRAMES)} full frames at B = 1; "
+        f"{len(plans)} distinct plans ({kinds}); largest |d| PCG "
+        f"{worst['pcg']:.3g}, tall vs standard {worst['tall']:.3g}, fused "
+        f"{worst['fused']:.3g}; {time.perf_counter() - t_phase:.3f} s "
+        f"({smi})")
+
+
+# Phase 13: the endurance run, cut: one size cycle (the 12 sizes at
+# ENDURANCE_BLOCK frames each) as the warm cycle and as the measured run,
+# at 19x8x400; at most ENDURANCE_MAX_DROP pairs dropped.
+ENDURANCE_PAIRS = 48
+ENDURANCE_BLOCK = 4
+ENDURANCE_MAX_DROP = 2
+
+
+def phase_endurance(smi: str) -> dict:
+    """13: ``tools/endurance.py`` in this process at --pairs
+    ENDURANCE_PAIRS --block ENDURANCE_BLOCK (its warm cycle included),
+    gated by the tool's gates with at most ENDURANCE_MAX_DROP pairs
+    dropped. Returns the launches of the whole run."""
+    from arap_flow_tpu_torch.tools import endurance
+
+    zero_counts()
+    t0 = time.perf_counter()
+    result = endurance.run(ENDURANCE_PAIRS, ENDURANCE_BLOCK,
+                           endurance.DEFAULT_SCHEDULE, "cuda")
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    fails = endurance.failures(result, max_dropped=ENDURANCE_MAX_DROP)
+    mem = {k: {f: result[k][f] for f in ("rule", "first_max_mb",
+                                         "second_max_mb", "ok")}
+           for k in ("rss", "memory_reserved")}
+    line = (f"phase 13 endurance (cut: --pairs {ENDURANCE_PAIRS} --block "
+            f"{ENDURANCE_BLOCK}, warm cycle {result['warm_pairs']} pairs, "
+            f"{result['schedule']}): {secs:.3f} s; "
+            f"{result['pairs_per_s']:.4f} pairs/s (second half "
+            f"{result['steady_state_pairs_per_s']:.4f}), p50 "
+            f"{result['latency_p50_s_per_pair']:.4f} / p95 "
+            f"{result['latency_p95_s_per_pair']:.4f} s a pair; dropped "
+            f"{result['dropped_pairs']}; {result['accuracy_checked']} pairs "
+            f"checked, failures {result['accuracy_failures']}; builds "
+            f"{result['builds_during_run']}; plan caches after the warm "
+            f"cycle {result['plan_cache_after_warm']}, after the run "
+            f"{result['plan_cache_after_run']}; memory {mem}; launches "
+            f"{launches} ({smi})")
+    say(line)
+    say(f"phase 13 PCG launches by B x H x W: "
+        f"{result['pcg_launch_shapes']}")
+    if launches["pcg_fixed"] <= 0 or launches["zncc_search"] <= 0:
+        fails.append(f"a kernel of the path never launched: {launches}")
+    if fails:
+        raise AssertionError(line + "\n  " + "\n  ".join(fails))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2882,7 +3476,11 @@ def main() -> int:
     if launches["pcg_fixed"] <= 0:
         raise AssertionError("the deform path never launched pcg_fixed")
     z_err, z_ms, z_plain, z_bound, z_by = phase_zncc()
-    launches, pipe_digest, pipe_cold = phase_pipeline(smi, args.profile)
+    # phase 5's trees, which phase 11 reads (removed after phase 11, or at
+    # exit)
+    keep_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    keep = keep_dir.name
+    launches, pipe_digest, pipe_cold = phase_pipeline(smi, args.profile, keep)
     if launches["zncc_search"] <= 0 or launches["pcg_fixed"] <= 0:
         raise AssertionError(f"the pipeline missed a kernel: {launches}")
     f_err, f_ms, f_plain = phase_fused(smi, call_ms)
@@ -2914,11 +3512,36 @@ def main() -> int:
     phase_host_deform(smi, probs, dev)
     tasks_launches = phase_run_tasks(smi, probs, tasks, dev)
     say(f"phase 10 seconds: {time.perf_counter() - t0:.3f}")
-    # the kernels' launches on the main paths: phase 5's pipeline and phase
-    # 10's sharded pipeline, mesh runner, pyramid and run_tasks
+    t0 = time.perf_counter()
+    warp_cli = None
+    try:
+        gen_launches = phase_generate(smi, keep)
+        arap_launches = phase_run_arap(smi, keep)
+        warp_cli = start_warp_cli(keep)
+        phase_run_warp(smi, keep)
+        phase_texture_gen(smi, keep)
+        phase_sintel_zncc(smi, keep)
+        check_warp_cli(smi, warp_cli)
+    finally:
+        if warp_cli is not None and warp_cli[0].poll() is None:
+            warp_cli[0].kill()
+            warp_cli[0].wait()
+        keep_dir.cleanup()
+    say(f"phase 11 seconds: {time.perf_counter() - t0:.3f}")
+    phase_ladder(smi)
+    t0 = time.perf_counter()
+    end_launches = phase_endurance(smi)
+    say(f"phase 13 seconds: {time.perf_counter() - t0:.3f}")
+    # the kernels' launches on the main paths: phase 5's pipeline, phase
+    # 10's sharded pipeline, mesh runner, pyramid and run_tasks, phase 11's
+    # generate and run_arap and phase 13's endurance run
     pcg_launches = (launches["pcg_fixed"] + shard_launches["pcg_fixed"]
-                    + mesh_launches + pyr_launches + tasks_launches)
-    zncc_launches = launches["zncc_search"] + shard_launches["zncc_search"]
+                    + mesh_launches + pyr_launches + tasks_launches
+                    + gen_launches["pcg_fixed"] + arap_launches["pcg_fixed"]
+                    + end_launches["pcg_fixed"])
+    zncc_launches = (launches["zncc_search"] + shard_launches["zncc_search"]
+                     + gen_launches["zncc_search"]
+                     + end_launches["zncc_search"])
     p_bound, p_by = pcg_bound(*PIPE_PCG_SHAPE)
     f_bound, f_by = fused_bound(*PIPE_PCG_SHAPE, *FUSED_UNIT)
     pcg_row = {"route": "cuda", "source": "arap_flow_tpu_torch/csrc/pcg.cu",

@@ -23,8 +23,9 @@ from arap_flow_tpu_torch.ops import pcg as TP
 from test_torch_pcg_plan import H100_LIKE
 
 FULL_FRAME = (480, 854)
-SHAPES = (*CROP_BUCKETS, FULL_FRAME)
-STREAMED = {(512, 896), FULL_FRAME}
+SINTEL_FRAME = (436, 1024)  # MPI-Sintel's frame: run_arap solves it whole
+SHAPES = (*CROP_BUCKETS, FULL_FRAME, SINTEL_FRAME)
+STREAMED = {(512, 896), FULL_FRAME, SINTEL_FRAME}
 
 
 def h100_like(plan):

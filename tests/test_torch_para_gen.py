@@ -91,6 +91,9 @@ def runs(tmp_path_factory):
             TP.PipelineFlags(input=inp, output=to, multseg=True, seed=0,
                              mode=mode, device="cpu"),
             solver_cfg=TConfig(**SHORT)))
+        # each run's chunk record (the next run clears it)
+        out[("jax", mode, "chunks")] = list(JP.CHUNK_STATS)
+        out[("torch", mode, "chunks")] = list(TP.CHUNK_STATS)
     return inp, out
 
 
@@ -126,6 +129,15 @@ def test_main_pipeline_matches_jax(runs, mode):
             osp.join(o, "tmpCnstr", "seq0", name + ".txt")).tolist()))
             for o in (to, jo))
         assert len(tc & jc) >= 0.97 * len(tc | jc)
+
+
+def test_chunk_stats_of_a_run_match_jax(runs):
+    """The batched runs' CHUNK_STATS: one chunk of the 2 pairs in both
+    packages; the simple runs collect no chunk."""
+    _, out = runs
+    for mode, want in (("batched", [2]), ("simple", [])):
+        for pkg in ("jax", "torch"):
+            assert [p for p, _, _ in out[(pkg, mode, "chunks")]] == want
 
 
 def test_resume_skips_generated_pairs(runs):

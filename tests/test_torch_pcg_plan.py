@@ -19,8 +19,9 @@ from arap_flow_tpu_torch.models.arap import CROP_BUCKETS
 from arap_flow_tpu_torch.ops import pcg as TP
 
 FULL_FRAME = (480, 854)
-SHAPES = (*CROP_BUCKETS, FULL_FRAME)
-STREAMED = {(512, 896), FULL_FRAME}
+SINTEL_FRAME = (436, 1024)  # MPI-Sintel's frame: run_arap solves it whole
+SHAPES = (*CROP_BUCKETS, FULL_FRAME, SINTEL_FRAME)
+STREAMED = {(512, 896), FULL_FRAME, SINTEL_FRAME}
 
 # Active clusters by cluster size, shaped like an H100's
 # (cudaOccupancyMaxActiveClusters of the kernel, one CTA an SM): 7 of 16
@@ -137,8 +138,49 @@ def _problem(B=2, H=12, W=40, seed=0):
 @pytest.mark.parametrize("tall", [False, True])
 def test_cpu_route_is_plain_and_not_counted(tall):
     args = _problem()
-    before = dict(TP.LAUNCHES)
+    before, shapes = dict(TP.LAUNCHES), dict(TP.LAUNCH_SHAPES)
     torch.testing.assert_close(TP.pcg_fixed(*args, 11, tall=tall),
                                TP.pcg_fixed_plain(*args, 11), rtol=0, atol=0)
-    assert TP.LAUNCHES == before
+    assert TP.LAUNCHES == before and dict(TP.LAUNCH_SHAPES) == shapes
+
+
+def smaller_card(plan):
+    """A stand-in card of 66 SMs (one CTA an SM) that holds no cluster of
+    more than 12 CTAs."""
+    return 0 if plan.cluster > 12 else 66 // plan.cluster
+
+
+@pytest.mark.parametrize("planner", ["pcg", "fused"])
+@pytest.mark.parametrize("B", [1, 24])
+@pytest.mark.parametrize("H,W", SHAPES, ids=[f"{h}x{w}" for h, w in SHAPES])
+def test_plan_on_a_smaller_card(planner, B, H, W):
+    """Every bucket, the full frame and Sintel's frame at B = 1 and the
+    pipeline's largest chunk (max_chunk_for gives 24 at every bucket), on a
+    card that holds fewer and smaller clusters: no CTA without rows, the
+    bands cover the rows, the shared memory within a block's, and a
+    resident plan with the fewest waves among those the card holds; where
+    it holds none (384x640 needs 14 CTAs), the largest candidate, which
+    the kernel's entry then refuses."""
+    from arap_flow_tpu_torch.ops import fused_solver as TF
+    from arap_flow_tpu_torch.pipeline.batch import max_chunk_for
+
+    if B > 1:
+        assert max_chunk_for((H, W)) == B
+    plan = (TP.pcg_plan if planner == "pcg" else TF.fused_plan)(
+        B, H, W, smaller_card)
+    R, n = plan.rows_per_cta, plan.cluster
+    assert 1 <= n <= TP.MAX_CLUSTER
+    assert R * n >= H and R * (n - 1) < H  # every CTA has rows
+    assert plan.smem_bytes <= TP.SMEM_PER_BLOCK - TP._STATIC_SMEM
+    assert plan.resident == ((H, W) not in STREAMED)
+    if plan.resident:
+        groups = TP._group_bytes if planner == "pcg" else TF._fused_group_bytes
+        cands = TP.candidate_plans(H, W, groups)
+        runs = [p for p in cands if smaller_card(p) > 0]
+        if not runs:
+            assert plan == cands[-1] and (H, W) == (384, 640)
+            return
+        best = min(-(-B // smaller_card(p)) for p in runs)
+        assert smaller_card(plan) > 0
+        assert -(-B // smaller_card(plan)) == best
 

@@ -11,7 +11,8 @@ package's, and ``para_gen --warmup``'s prewarm, on the CPU.
 - ``profile_solve`` and ``device_trace`` (a Chrome trace written);
 - ``prewarm`` at one small bucket, in both modes and with a frame shape;
   ``para_gen --warmup`` writes the same products as without it, and
-  ``ARAP_WARMUP_FULL`` selects the whole bucket ladder.
+  ``ARAP_WARMUP_FULL`` selects the whole bucket ladder
+  (tests/test_torch_endurance.py holds it to JAX's).
 """
 
 import json
@@ -177,8 +178,9 @@ def test_warmup_changes_no_product(tmp_path, monkeypatch, capsys, mode):
 
 
 def test_warmup_takes_frame_shape_from_size(tmp_path, monkeypatch):
-    """--warmup warms PREWARM_BUCKETS (no bucket list passed) in the run's
-    mode, and the matcher at the frame shape --size (w, h) gives."""
+    """--warmup warms PREWARM_BUCKETS (buckets None: ARAP_WARMUP_FULL is
+    unset) in the run's mode, and the matcher at the frame shape --size
+    (w, h) gives."""
     class Warmed(Exception):
         pass
 
@@ -186,6 +188,7 @@ def test_warmup_takes_frame_shape_from_size(tmp_path, monkeypatch):
         raise Warmed(kw)
 
     monkeypatch.setattr(TP, "prewarm", fake_prewarm)
+    monkeypatch.delenv("ARAP_WARMUP_FULL", raising=False)
     inp = str(tmp_path / "in")
     _tree(inp, n_frames=2)
     for mode in ("batched", "simple"):
@@ -196,6 +199,6 @@ def test_warmup_takes_frame_shape_from_size(tmp_path, monkeypatch):
                                  size=(W, H), device="cpu"),
                 solver_cfg=S.SolverConfig(**SHORT))
         (kw,) = e.value.args
-        assert "buckets" not in kw
+        assert kw["buckets"] is None
         assert kw["frame_shape"] == (H, W)
         assert kw["batched"] == (mode == "batched")

@@ -1,6 +1,7 @@
 """chip_smoke.py's constants recorded from the JAX package, which the
 card's machine does not have: phase 8a's draws and 64x96 render checksums
-(``TEX_JAX_DRAWS``, ``TEX_JAX_SUMS``) and phase 8b's per-object flow
+(``TEX_JAX_DRAWS``, ``TEX_JAX_SUMS``), phase 11d's texture_gen family and
+checksums (``TEXGEN_JAX_FIRST``) and phase 8b's per-object flow
 errors of the JAX package's own dmo_gen run on 8b's tree
 (``DMO_JAX_ERRS``), with 8b's flow gate built on them.
 
@@ -44,6 +45,20 @@ def jax_sums(i: int, fam: str) -> tuple:
 def test_phase_8a_constants_are_jax(i, fam):
     assert C.TEX_JAX_DRAWS[fam] == jax_draws(i, fam)
     assert C.TEX_JAX_SUMS[fam] == jax_sums(i, fam)
+
+
+def jax_texture_gen_first(seed: int) -> tuple:
+    """The JAX package's texture_gen at `seed`: the first image's family
+    (its numpy draw) and the checksums of that family's 64x96 render from
+    the first image's key, PRNGKey(seed * 100003)."""
+    rng = np.random.default_rng(seed)
+    fam = list(JT.FAMILIES)[rng.integers(0, len(JT.FAMILIES))]
+    return fam, C.texture_sums(np.asarray(JT.render(
+        jax.random.PRNGKey(seed * 100003), fam, 64, 96)))
+
+
+def test_phase_11d_constant_is_jax():
+    assert C.TEXGEN_JAX_FIRST == jax_texture_gen_first(C.TEXGEN_SEED)
 
 
 def _jax_dmo_texture(obj: int) -> np.ndarray:
@@ -133,5 +148,6 @@ def jax_dmo_errs() -> dict:
 if __name__ == "__main__":
     for i, fam in enumerate(JT.FAMILIES):
         print(f"{fam}: draws {jax_draws(i, fam)}; sums {jax_sums(i, fam)}")
+    print("TEXGEN_JAX_FIRST =", jax_texture_gen_first(C.TEXGEN_SEED))
     if "--dmo" in sys.argv:
         print("DMO_JAX_ERRS =", jax_dmo_errs())
