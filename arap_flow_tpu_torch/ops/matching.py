@@ -38,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils import transfer
+from ..utils import profiling, transfer
 from .zncc import box_sum, zncc_search, zscore
 
 
@@ -590,14 +590,19 @@ def match_images_fetch(handle, fb_threshold: float = 1.5,
                        roi_mask=None) -> np.ndarray:
     """Copy a dispatched pair's grid planes to the host (waiting for the
     device) and select its matches. roi_mask (optional (H, W), nonzero = of
-    interest) restricts the selection before the coherence passes."""
+    interest) restricts the selection before the coherence passes. Stages
+    "matching wait" (the copy, behind whatever the device runs before the
+    searches) and "matching select" (the host selection)."""
     (shared, i), H_, W_, stride, stride_d, ds, radius = handle
-    u, v, sg, fb = shared.pair(i)
-    return _select_from_grids(
-        u * ds, v * ds, sg, fb * ds, H_, W_, stride,
-        fb_threshold * ds, score_threshold, radius,
-        off=ds * (stride_d // 2), step=ds * stride_d, roi=roi_mask,
-    )
+    timer = profiling.TIMER
+    with timer.stage("matching wait"):
+        u, v, sg, fb = shared.pair(i)
+    with timer.stage("matching select"):
+        return _select_from_grids(
+            u * ds, v * ds, sg, fb * ds, H_, W_, stride,
+            fb_threshold * ds, score_threshold, radius,
+            off=ds * (stride_d // 2), step=ds * stride_d, roi=roi_mask,
+        )
 
 
 def match_images(

@@ -39,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .energy import (
     ArapOperands,
     anneal_constraints,
@@ -213,29 +214,40 @@ def _batched(ops: ArapOperands) -> ArapOperands:
 def gn_step(x, ops: ArapOperands, cimg, cfg: SolverConfig, pcg_iters: float,
             q_tol: float, rz_tol: float):
     """One Gauss-Newton iteration: linearise at x, PCG-solve, update.
-    `cfg` must be resolved. Returns (x', PCG iterations per problem)."""
-    s, c = trig(x)
-    jtf, diag = jtf_and_diag(x, ops, cimg)
-    if cfg.backend == "cuda":
-        from .pcg import pcg_fixed
+    `cfg` must be resolved. Returns (x', PCG iterations per problem).
 
-        budget = int(np.minimum(np.float32(cfg.max_pcg_iters),
-                                np.float32(pcg_iters)))
-        bops = ops if x.dim() == 4 else _batched(ops)
-        b = -jtf if x.dim() == 4 else -jtf[None]
-        pre = guarded_invert(diag).reshape(b.shape)
-        delta = pcg_fixed(
-            b, pre, s.reshape(b.shape[0], *s.shape[-2:]),
-            c.reshape(b.shape[0], *c.shape[-2:]), bops.vmasks, bops.fitmask,
-            bops.wf2, bops.wr2, budget,
-        ).reshape(x.shape)
-        iters = torch.full(x.shape[:-3], float(budget), dtype=x.dtype,
-                           device=x.device)
-    elif cfg.backend == "plain":
-        delta, iters = pcg_solve(ops, s, c, jtf, diag, cfg.max_pcg_iters,
-                                 pcg_iters, q_tol, rz_tol)
-    else:
+    Stages "gn linearise" (the host's issue of the linearisation: trig,
+    JtF and the diagonal, the preconditioner and the reshapes) and "pcg
+    launch" (the host side of the PCG call: on the cuda backend the plan
+    lookup and the launch; on the plain one the whole torch PCG). They time
+    the enqueue; once the device's launch queue is full, an enqueue also
+    waits for the device, so on a device-bound run they hold device
+    time."""
+    timer = profiling.TIMER
+    if cfg.backend not in ("cuda", "plain"):
         raise ValueError(f"gn_step needs a resolved backend, got {cfg.backend!r}")
+    with timer.stage("gn linearise"):
+        s, c = trig(x)
+        jtf, diag = jtf_and_diag(x, ops, cimg)
+        if cfg.backend == "cuda":
+            budget = int(np.minimum(np.float32(cfg.max_pcg_iters),
+                                    np.float32(pcg_iters)))
+            bops = ops if x.dim() == 4 else _batched(ops)
+            b = -jtf if x.dim() == 4 else -jtf[None]
+            pre = guarded_invert(diag).reshape(b.shape)
+            s = s.reshape(b.shape[0], *s.shape[-2:])
+            c = c.reshape(b.shape[0], *c.shape[-2:])
+    with timer.stage("pcg launch"):
+        if cfg.backend == "cuda":
+            from .pcg import pcg_fixed
+
+            delta = pcg_fixed(b, pre, s, c, bops.vmasks, bops.fitmask,
+                              bops.wf2, bops.wr2, budget).reshape(x.shape)
+            iters = torch.full(x.shape[:-3], float(budget), dtype=x.dtype,
+                               device=x.device)
+        else:
+            delta, iters = pcg_solve(ops, s, c, jtf, diag, cfg.max_pcg_iters,
+                                     pcg_iters, q_tol, rz_tol)
     return x + delta, iters
 
 

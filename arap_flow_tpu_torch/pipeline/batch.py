@@ -38,7 +38,7 @@ from ..models.arap import (
 from ..ops import energy as E
 from ..ops.solver import SolverConfig
 from ..utils import transfer
-from ..utils.profiling import StageTimer
+from ..utils import profiling
 
 # Device bytes of one problem in the PCG kernel call: b, pre, δ and the r, p,
 # Ap scratch (3 planes each), s, c, fit (1 each) and vm (4), all float32.
@@ -181,7 +181,7 @@ class BatchRunner:
                  weights: E.ArapWeights = E.ArapWeights(), mesh=None):
         self.cfg = cfg
         self.device = torch.device(device)
-        self.timer = timer if timer is not None else StageTimer()
+        self.timer = timer if timer is not None else profiling.TIMER
         self.weights = weights
         self.mesh = mesh
         self.n_data = 1 if mesh is None else mesh.shape["data"]
@@ -277,7 +277,9 @@ class BatchRunner:
         """Copy every enqueued chunk back (each copy waits for its own chunk
         on the device) and paste it into full-frame arrays. The pastes run
         on one worker thread, overlapped with the next chunk's copy; only
-        the worker writes ``self.out``, which is read after they join."""
+        the worker writes ``self.out``, which is read after they join. The
+        worker's spans take the caller's ids."""
+        ids = self.timer.scope_ids()
         with ThreadPoolExecutor(1) as ex:
             futs = []
             for group, ready, flows, wrgbs, wmasks in self.pending:
@@ -286,7 +288,8 @@ class BatchRunner:
                                                       ready)
                 paste = (self._assemble if isinstance(group, tuple)
                          else self._paste_chunk)  # tuple: a fallback's key
-                futs.append(ex.submit(paste, group, f_np, r_np, m_np))
+                futs.append(ex.submit(self.timer.in_scope, ids, paste, group,
+                                      f_np, r_np, m_np))
             for f in futs:
                 f.result()  # join, and raise a paste's exception here
         self.pending.clear()

@@ -28,6 +28,7 @@ from ..io.image import image_size, load_mask, load_rgb, save_image
 from ..models.arap import ArapDeformer, DeformResult, solve_and_raster_batch
 from ..ops import energy as E
 from ..ops.solver import SolverConfig
+from ..utils import profiling
 from ..utils.config import FrameworkConfig, cli_device
 from .batch import max_chunk_for
 
@@ -84,6 +85,7 @@ def deform_frames(frames: list[FramePaths], cfg: SolverConfig, *, device,
             serial(fr)
         return failed
     groups: dict[tuple, list[int]] = {}
+    n_chunks = 0  # the spans' chunk ids
     for i, fr in enumerate(frames):
         groups.setdefault(image_size(fr.mask), []).append(i)
     for (H, W), idxs in groups.items():
@@ -94,11 +96,13 @@ def deform_frames(frames: list[FramePaths], cfg: SolverConfig, *, device,
         for c0 in range(0, len(idxs), step):
             chunk = [frames[i] for i in idxs[c0 : c0 + step]]
             try:
-                _deform_chunk(chunk, H, W, cfg, fw, device)
+                with profiling.TIMER.scope(chunk=n_chunks):
+                    _deform_chunk(chunk, H, W, cfg, fw, device)
             except Exception as e:  # noqa: BLE001 — isolate the bad frame
                 print(f"batched chunk failed ({e!r}); retrying frame by frame")
                 for fr in chunk:
                     serial(fr)
+            n_chunks += 1
     return failed
 
 
@@ -112,23 +116,31 @@ def _write_result(fr: FramePaths, res: DeformResult) -> None:
 def _deform_chunk(chunk: list[FramePaths], H: int, W: int,
                   cfg: SolverConfig, fw: FrameworkConfig, device) -> None:
     """Solve and rasterize same-shape frames as one batch; writes nothing
-    unless the whole batch solved."""
-    ops, rgbs = [], []
-    for fr in chunk:
-        cons = add_border_pins(np.asarray(
-            read_constraint_file(fr.cstr), np.int32).reshape(-1, 4), W, H)
-        ops.append(E.build_compact(load_mask(fr.mask), cons, fw.weights))
-        rgbs.append(np.ascontiguousarray(load_rgb(fr.rgb).transpose(2, 0, 1)))
-    _, flows, wrgbs, wmasks = solve_and_raster_batch(
-        E.CompactOperands.stack(ops).to(device),
-        torch.as_tensor(np.stack(rgbs), device=device), cfg)
-    flows, wrgbs, wmasks = (t.cpu().numpy() for t in (flows, wrgbs, wmasks))
-    for j, fr in enumerate(chunk):
-        _write_result(fr, DeformResult(
-            flow=flows[j].transpose(1, 2, 0),
-            warped_rgb=wrgbs[j].transpose(1, 2, 0),
-            warped_mask=wmasks[j],
-        ))
+    unless the whole batch solved. Stages "run_arap prep" (reads, operands,
+    stack, upload), "run_arap solve" (the solves' issue and the wait for
+    their products) and "run_arap write"."""
+    timer = profiling.TIMER
+    with timer.stage("run_arap prep"):
+        ops, rgbs = [], []
+        for fr in chunk:
+            cons = add_border_pins(np.asarray(
+                read_constraint_file(fr.cstr), np.int32).reshape(-1, 4), W, H)
+            ops.append(E.build_compact(load_mask(fr.mask), cons, fw.weights))
+            rgbs.append(np.ascontiguousarray(
+                load_rgb(fr.rgb).transpose(2, 0, 1)))
+        ops = E.CompactOperands.stack(ops).to(device)
+        rgbs = torch.as_tensor(np.stack(rgbs), device=device)
+    with timer.stage("run_arap solve"):
+        _, flows, wrgbs, wmasks = solve_and_raster_batch(ops, rgbs, cfg)
+        flows, wrgbs, wmasks = (t.cpu().numpy()
+                                for t in (flows, wrgbs, wmasks))
+    with timer.stage("run_arap write"):
+        for j, fr in enumerate(chunk):
+            _write_result(fr, DeformResult(
+                flow=flows[j].transpose(1, 2, 0),
+                warped_rgb=wrgbs[j].transpose(1, 2, 0),
+                warped_mask=wmasks[j],
+            ))
 
 
 def make_config(schedule: str) -> SolverConfig:

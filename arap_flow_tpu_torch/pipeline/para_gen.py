@@ -66,11 +66,13 @@ from ..io.resize import resize_lanczos, resize_nearest
 from ..models.arap import CROP_BUCKETS, ArapDeformer
 from ..ops.solver import SolverConfig
 from ..utils.config import FrameworkConfig, cli_device
-from ..utils.profiling import StageTimer
+from ..utils import profiling
 
 log = logging.getLogger("arap_flow_tpu_torch.para_gen")
 
-TIMER = StageTimer()
+# the process's stage timer (profiling.TIMER): para_gen's stages, and those
+# of ops/ and BatchRunner beneath them
+TIMER = profiling.TIMER
 
 # (pairs in the chunk, seconds, end time) of each chunk the batched loop of
 # the last main_pipeline call collected: the loop's iteration that
@@ -340,6 +342,7 @@ class PairWork:
     out1: np.ndarray  # frame 1 with the background composited
     bgim: np.ndarray | None
     segments: list  # [(seg_id, arap_mask (H, W) u8, constraints (N, 4))]
+    pair: int = 0  # the pair's index in the job (its spans' pair id)
 
 
 def decode_pair(flags: PipelineFlags, p: PairPaths):
@@ -452,12 +455,13 @@ def solve_pair(work: PairWork, deformer: ArapDeformer,
 
 
 
-def prep_chunk_dispatch_match(flags: PipelineFlags, pairs):
+def prep_chunk_dispatch_match(flags: PipelineFlags, pairs, first: int = 0):
     """Decode a chunk's pairs and enqueue their matcher on the device
     without waiting for it. Same-shaped pairs go through one
     match_images_dispatch_multi call per sub-batch of up to MATCH_SUBBATCH
     pairs, at their real count. Returns [(pair, handle, decoded)], or None
-    when the matcher is not native."""
+    when the matcher is not native. `first` is the index of the chunk's
+    first pair in the job (the spans' pair ids)."""
     if flags.matcher != "native":
         return None
     from ..ops.matching import match_images_dispatch_multi
@@ -466,10 +470,11 @@ def prep_chunk_dispatch_match(flags: PipelineFlags, pairs):
     handles = []
     with TIMER.stage("match dispatch"):
         decoded = []
-        for p in pairs:
+        for j, p in enumerate(pairs):
             try:
                 _ensure_dirs(p)
-                d = decode_pair(flags, p)
+                with TIMER.scope(pair=first + j):
+                    d = decode_pair(flags, p)
             except _DECODE_ERRORS as e:
                 log.warning("pair decode failed: %s (%s)", p.rgb1_org, e)
                 continue
@@ -489,13 +494,15 @@ def prep_chunk_dispatch_match(flags: PipelineFlags, pairs):
 
 
 def prep_chunk_finish(flags: PipelineFlags, pairs, handles, weights,
-                      bgpool: BackgroundPool):
+                      bgpool: BackgroundPool, first: int = 0):
     """Fetch a chunk's matches, then filter, composite backgrounds and crop
     each segment into its solve bucket. Returns (works, tasks, fallbacks)
-    for dispatch_chunk_batched."""
+    for dispatch_chunk_batched. `first` is as in
+    prep_chunk_dispatch_match."""
     from ..ops.matching import match_images_fetch
     from .batch import make_task
 
+    index = {id(p): first + j for j, p in enumerate(pairs)}
     prematched: dict = {}
     predecoded: dict = {}
     if handles is not None:
@@ -504,7 +511,8 @@ def prep_chunk_finish(flags: PipelineFlags, pairs, handles, weights,
                 predecoded[id(p)] = d
                 # selection restricted to the annotated objects: the
                 # constraint filter drops off-object matches anyway
-                m = match_images_fetch(h, roi_mask=d[1])
+                with TIMER.scope(pair=index[id(p)]):
+                    m = match_images_fetch(h, roi_mask=d[1])
                 prematched[id(p)] = m[:, :4].astype(np.int32)
 
     works: list[PairWork] = []
@@ -513,13 +521,15 @@ def prep_chunk_finish(flags: PipelineFlags, pairs, handles, weights,
         if handles is not None and id(p) not in predecoded:
             continue  # its decode failed or its masks are empty
         try:
-            w = prep_pair(flags, p, bgpool, prematched.get(id(p)),
-                          decoded=predecoded.get(id(p)))
+            with TIMER.scope(pair=index[id(p)]):
+                w = prep_pair(flags, p, bgpool, prematched.get(id(p)),
+                              decoded=predecoded.get(id(p)))
         except _DECODE_ERRORS as e:
             log.warning("pair prep failed: %s (%s)", p.rgb1_org, e)
             w = None
         if w is None:
             continue
+        w.pair = index[id(p)]
         idx = len(works)
         works.append(w)
         for seg_id, arap_mask, cons in w.segments:
@@ -578,7 +588,7 @@ def collect_chunk_batched(inflight, cfg, weights, device,
             except RuntimeError as e2:
                 log.warning("pair failed: %s (%s)", w.p.rgb1_org, e2)
                 continue
-            with TIMER.stage("compose+outputs-io"):
+            with TIMER.scope(pair=w.pair), TIMER.stage("compose+outputs-io"):
                 triples.append(" ".join(finish_pair(w, seg_results, writer)))
         return triples
 
@@ -589,7 +599,7 @@ def collect_chunk_batched(inflight, cfg, weights, device,
             if (idx, seg_id) in results
         ]
         if seg_results:
-            with TIMER.stage("compose+outputs-io"):
+            with TIMER.scope(pair=w.pair), TIMER.stage("compose+outputs-io"):
                 triples.append(" ".join(finish_pair(w, seg_results, writer)))
     return triples
 
@@ -705,53 +715,59 @@ def _run_batched(flags, chunks, n_pairs, deformer, bgpool, device,
     enqueue chunk k+1's matcher (main thread, ahead of chunk k's solves on
     the device), wait for chunk k's prep, start chunk k+1's prep on the
     worker, enqueue chunk k's solves (split over `mesh` when given), then
-    collect and write chunk k−1."""
+    collect and write chunk k−1. Each of the four steps is a stage whose
+    span carries the id of the chunk it works on."""
     cfg, weights = deformer.cfg, deformer.weights
-    prof = os.environ.get("ARAP_PROFILE")
+    firsts = [0]
+    for ch in chunks:
+        firsts.append(firsts[-1] + len(ch))
+    job = TIMER.scope_ids()
+
+    def prep(k, handles):
+        return ex.submit(TIMER.in_scope, {**job, "chunk": k},
+                         prep_chunk_finish, flags, chunks[k], handles,
+                         weights, bgpool, firsts[k])
+
     triples: list[str] = []
     with ThreadPoolExecutor(max_workers=1) as ex:
         fut = None
         if chunks:
-            ha = prep_chunk_dispatch_match(flags, chunks[0])
-            fut = ex.submit(prep_chunk_finish, flags, chunks[0], ha, weights,
-                            bgpool)
+            with TIMER.scope(chunk=0):
+                ha = prep_chunk_dispatch_match(flags, chunks[0])
+            fut = prep(0, ha)
         inflight = None  # the dispatched state of chunk k−1
         started = 0
         for i, ch in enumerate(chunks):
             print(f"{100.0 * started / max(n_pairs, 1):.3f}%", flush=True)
             started += len(ch)
             t0 = time.perf_counter()
-            if i + 1 < len(chunks):
-                ha_next = prep_chunk_dispatch_match(flags, chunks[i + 1])
-            t1 = time.perf_counter()
-            prepped = fut.result()
-            t2 = time.perf_counter()
-            if i + 1 < len(chunks):
-                fut = ex.submit(prep_chunk_finish, flags, chunks[i + 1],
-                                ha_next, weights, bgpool)
-            disp = dispatch_chunk_batched(prepped, cfg, weights, device, mesh)
-            t3 = time.perf_counter()
-            if inflight is not None:
-                triples += collect_chunk_batched(inflight, cfg, weights,
-                                                 device, writer)
+            with TIMER.scope(chunk=i + 1), TIMER.stage("chunk phaseA"):
+                if i + 1 < len(chunks):
+                    ha_next = prep_chunk_dispatch_match(flags, chunks[i + 1],
+                                                        firsts[i + 1])
+            with TIMER.scope(chunk=i):
+                with TIMER.stage("chunk prep-wait"):
+                    prepped = fut.result()
+                with TIMER.stage("chunk dispatch"):
+                    if i + 1 < len(chunks):
+                        fut = prep(i + 1, ha_next)
+                    disp = dispatch_chunk_batched(prepped, cfg, weights,
+                                                  device, mesh)
+            with TIMER.scope(chunk=i - 1), TIMER.stage("chunk collect+finish"):
+                if inflight is not None:
+                    triples += collect_chunk_batched(inflight, cfg, weights,
+                                                     device, writer)
             t4 = time.perf_counter()
-            TIMER.add("chunk phaseA", t1 - t0)
-            TIMER.add("chunk prep-wait", t2 - t1)
-            TIMER.add("chunk dispatch", t3 - t2)
-            TIMER.add("chunk collect+finish", t4 - t3)
-            if prof:
-                print(f"  [chunk {i}] phaseA {t1 - t0:.2f}s prep-wait "
-                      f"{t2 - t1:.2f}s dispatch {t3 - t2:.2f}s "
-                      f"collect+finish {t4 - t3:.2f}s", flush=True)
             if i > 0:
                 CHUNK_STATS.append((len(chunks[i - 1]), t4 - t0, time.time()))
             inflight = disp
         if inflight is not None:
             t0 = time.perf_counter()
-            triples += collect_chunk_batched(inflight, cfg, weights, device,
-                                             writer)
+            with TIMER.scope(chunk=len(chunks) - 1), \
+                    TIMER.stage("chunk collect+finish"):
+                triples += collect_chunk_batched(inflight, cfg, weights,
+                                                 device, writer)
             t4 = time.perf_counter()
-            TIMER.add("chunk collect+finish", t4 - t0)
             CHUNK_STATS.append((len(chunks[-1]), t4 - t0, time.time()))
     return triples
 
@@ -761,25 +777,29 @@ def _run_simple(flags, pairs, deformer, bgpool, writer) -> list[str]:
     runs on one worker thread while this pair solves (JAX
     para_gen.py:955-992; one worker keeps the background draws in order)."""
 
-    def safe_prep(p):
+    job = TIMER.scope_ids()
+
+    def safe_prep(i):
         try:
-            return prep_pair(flags, p, bgpool)
+            return TIMER.in_scope({**job, "pair": i}, prep_pair, flags,
+                                  pairs[i], bgpool)
         except (RuntimeError, *_DECODE_ERRORS) as e:
-            log.warning("pair prep failed: %s (%s)", p.rgb1_org, e)
+            log.warning("pair prep failed: %s (%s)", pairs[i].rgb1_org, e)
             return None
 
     triples: list[str] = []
     with ThreadPoolExecutor(max_workers=1) as ex:
-        fut = ex.submit(safe_prep, pairs[0]) if pairs else None
+        fut = ex.submit(safe_prep, 0) if pairs else None
         for i, p in enumerate(pairs):
             print(f"{100.0 * i / max(len(pairs), 1):.3f}%", flush=True)
             work = fut.result()
             if i + 1 < len(pairs):
-                fut = ex.submit(safe_prep, pairs[i + 1])
+                fut = ex.submit(safe_prep, i + 1)
             if work is None:
                 continue
             try:
-                t = solve_pair(work, deformer, writer)
+                with TIMER.scope(pair=i):
+                    t = solve_pair(work, deformer, writer)
             except (RuntimeError, *_DECODE_ERRORS) as e:
                 # keep generating; log the failure
                 log.warning("pair failed: %s (%s)", p.rgb1_org, e)
@@ -792,7 +812,14 @@ def main_pipeline(
     flags: PipelineFlags, solver_cfg: SolverConfig | None = None
 ) -> list[str]:
     """Generate the dataset of `flags`; returns the lines of the list file
-    (inpRGB wRGB flo per pair) after the final existence sweep."""
+    (inpRGB wRGB flo per pair) after the final existence sweep. The call is
+    one job of ``TIMER``'s spans (``profiling.entry_call``: with
+    ``ARAP_TRACE=<dir>`` its spans are written there)."""
+    with profiling.entry_call(TIMER):
+        return _generate(flags, solver_cfg)
+
+
+def _generate(flags: PipelineFlags, solver_cfg: SolverConfig | None):
     global WRITE_ERRORS
     fw = FrameworkConfig.from_env(
         solver=solver_cfg or make_solver_config(flags.schedule),

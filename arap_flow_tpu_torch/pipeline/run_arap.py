@@ -6,6 +6,11 @@ JAX package): one process feeding the batched solver.
 
     # or build the list from a Sintel-style tree
     python -m arap_flow_tpu_torch run_arap --input ROOT --passes clean final
+
+A call is one job of ``profiling.TIMER``'s spans: stages "run_arap scan"
+(the list) and, per chunk, "run_arap prep", "run_arap solve" and "run_arap
+write" (``deform_tool._deform_chunk``); with ``ARAP_TRACE=<dir>`` the
+call's spans are written there as one Chrome trace.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import argparse
 import os
 import os.path as osp
 
+from ..utils import profiling
 from ..utils.config import cli_device
 from .deform_tool import FramePaths, deform_frames, make_framework_config
 from .deform_tool import parse_list_file
@@ -55,6 +61,11 @@ def build_sintel_list(root: str, passes: list[str]) -> list[FramePaths]:
 
 
 def main(argv=None):
+    with profiling.entry_call():
+        return _run(argv)
+
+
+def _run(argv):
     p = argparse.ArgumentParser(description="Batch ARAP deformation over path lists")
     p.add_argument("--list", default=None, help="file of 6-tuple lines")
     p.add_argument("--input", default=None, help="Sintel-style root")
@@ -66,12 +77,11 @@ def main(argv=None):
                    help="torch device (default cuda)")
     a = p.parse_args(argv)
 
-    if a.list:
-        frames = parse_list_file(a.list)
-    elif a.input:
-        frames = build_sintel_list(a.input, a.passes)
-    else:
+    if not (a.list or a.input):
         p.error("need --list or --input")
+    with profiling.TIMER.stage("run_arap scan"):
+        frames = (parse_list_file(a.list) if a.list
+                  else build_sintel_list(a.input, a.passes))
     if not frames:
         print("No file to be processed")
         return 1

@@ -65,7 +65,6 @@ def main() -> int:
     from arap_flow_tpu_torch import _build
     from arap_flow_tpu_torch.ops.solver import SolverConfig
     from arap_flow_tpu_torch.pipeline import para_gen
-    from arap_flow_tpu_torch.utils.profiling import StageTimer
 
     smi = C.phase_env()
     _, build_s = _build.build()
@@ -101,7 +100,7 @@ def main() -> int:
         cold = run("cold")
         warm = []
         for i in range(args.runs):
-            para_gen.TIMER = StageTimer()
+            para_gen.TIMER.reset()
             warm.append(run(f"warm{i}"))
         stages = {k: round(v, 4) for k, v in para_gen.TIMER.totals.items()}
     print(json.dumps({"root": root, "card": smi, "build_s": build_s,

@@ -14,6 +14,12 @@ Env vars (``ARAP_*``, applied over the keyword overrides; env wins):
 
 ARAP_TALL_KERNEL is read by the PCG kernel's wrapper at each call
 (ops/pcg.tall_kernel_enabled): set, it runs the stacked-plane layout.
+
+ARAP_TRACE=<dir> is read at each call of para_gen.main_pipeline and
+run_arap.main (utils/profiling.entry_call): set, the call records
+profiling.TIMER's spans (stage, thread, parent, job/chunk/pair ids, on the
+torch.profiler clock) and writes them into <dir> as one Chrome trace,
+spans-PID-NS.json. Unset, no span is kept.
 """
 
 from __future__ import annotations

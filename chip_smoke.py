@@ -1273,7 +1273,6 @@ def phase_pipeline(smi: str, profiled: bool = False, keep: str | None = None):
     from arap_flow_tpu_torch.ops.energy import ArapWeights
     from arap_flow_tpu_torch.ops.solver import SolverConfig
     from arap_flow_tpu_torch.pipeline import para_gen
-    from arap_flow_tpu_torch.utils.profiling import StageTimer
 
     cfg = SolverConfig()
     n_pairs = PIPE_FRAMES - 1
@@ -1302,7 +1301,7 @@ def phase_pipeline(smi: str, profiled: bool = False, keep: str | None = None):
             shutil.copytree(os.path.join(tmp, "cold"),
                             os.path.join(keep, "out"))
 
-        para_gen.TIMER = StageTimer()
+        para_gen.TIMER.reset()
         zero_counts()
         lines, warm = run_pipeline(inp, os.path.join(tmp, "warm"), cfg)
         warm_launches = read_counts()
@@ -1735,7 +1734,6 @@ def phase_jpeg_pipeline(smi: str) -> None:
     from arap_flow_tpu_torch.ops.energy import ArapWeights
     from arap_flow_tpu_torch.ops.solver import SolverConfig
     from arap_flow_tpu_torch.pipeline import para_gen
-    from arap_flow_tpu_torch.utils.profiling import StageTimer
 
     nr = synth_nonrigid()
     cfg = SolverConfig()
@@ -1782,7 +1780,7 @@ def phase_jpeg_pipeline(smi: str) -> None:
             raise AssertionError(line)
         check_jpeg_products(inp, os.path.join(tmp, "cold"), lines, nr,
                             pre_masks)
-        para_gen.TIMER = StageTimer()
+        para_gen.TIMER.reset()
         zero_counts()
         lines, warm, warm_err = run_jpeg_pipeline(
             inp, os.path.join(tmp, "warm"), cfg)
