@@ -50,7 +50,7 @@ def _solve_and_raster(ops, rgb: torch.Tensor, cfg: SolverConfig):
     ops = _expand(ops)
     x = S.anneal_solve(ops, cfg)
     flow = S.flow_from_state(x, ops)
-    wrgb, wmask = R.rasterize(x[:2], _to_f32(rgb), 1.0 - ops.mask)
+    wrgb, wmask = R.rasterize_replayed(x[:2], _to_f32(rgb), 1.0 - ops.mask)
     return x, flow, wrgb.to(torch.uint8), wmask.to(torch.uint8)
 
 
@@ -342,9 +342,9 @@ def solve_and_raster_canvas(ops_batched, rgb_batched: torch.Tensor, offs,
     wrgbs, wmasks = [], []
     for k in range(x.shape[0]):
         dy, dx = int(offs[k, 0]), int(offs[k, 1])
-        # canvas-absolute warped positions
-        warp = x[k, :2] + torch.tensor([dx, dy], dtype=x.dtype,
-                                       device=x.device)[:, None, None]
+        # canvas-absolute warped positions (scalar adds: an uploaded
+        # offset would wait for the solve queued before it)
+        warp = torch.stack((x[k, 0] + dx, x[k, 1] + dy))
         # placement start clamped into the canvas, as a dynamic_update_slice
         py, px = min(max(dy, 0), Hc - hs), min(max(dx, 0), Wc - ws)
         box = (slice(py, py + hs), slice(px, px + ws))
@@ -355,7 +355,7 @@ def solve_and_raster_canvas(ops_batched, rgb_batched: torch.Tensor, offs,
         mask_c[box] = 1.0 - mask[k]
         rgb_c = torch.zeros((3, Hc, Wc), dtype=torch.float32, device=x.device)
         rgb_c[(slice(None), *box)] = _to_f32(rgb_batched[k])
-        wrgb, wmask = R.rasterize(warp_c, rgb_c, mask_c)
+        wrgb, wmask = R.rasterize_replayed(warp_c, rgb_c, mask_c)
         wrgbs.append(wrgb.to(torch.uint8))
         wmasks.append(wmask.to(torch.uint8))
     if compact_flow:
@@ -383,8 +383,8 @@ def solve_and_raster_batch(ops_batched, rgb_batched: torch.Tensor,
     flows = S.flow_from_state(x, o)
     wrgbs, wmasks = [], []
     for k in range(x.shape[0]):
-        wrgb, wmask = R.rasterize(x[k, :2], _to_f32(rgb_batched[k]),
-                                  1.0 - o.mask[k])
+        wrgb, wmask = R.rasterize_replayed(x[k, :2], _to_f32(rgb_batched[k]),
+                                           1.0 - o.mask[k])
         wrgbs.append(wrgb.to(torch.uint8))
         wmasks.append(wmask.to(torch.uint8))
     if compact_flow:

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import transfer
 from .stencil import DIRS, shift
 
 
@@ -76,9 +77,10 @@ class CompactOperands:
     wr2: np.ndarray | torch.Tensor
 
     def to(self, device) -> "CompactOperands":
+        """The leaves on `device`, uploaded without waiting for the device
+        (``utils.transfer.upload``)."""
         return CompactOperands(**{
-            f.name: torch.tensor(np.asarray(getattr(self, f.name)),
-                                 device=device)
+            f.name: transfer.upload(getattr(self, f.name), device)
             for f in dataclasses.fields(self)
         })
 

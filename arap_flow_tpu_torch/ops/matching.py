@@ -220,7 +220,7 @@ def _pyramid_flow(g1: torch.Tensor, g2: torch.Tensor, radius: int = 100,
                    for m in Ms])
 
     def lanes(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=dev).expand(
+        return transfer.upload(np.asarray(a, np.float32), dev).expand(
             L, *a.shape)
 
     g2r = _bilinear(pyr2[-1], lanes(qx), lanes(qy))  # (L, K, Hc, Wc)
@@ -238,8 +238,8 @@ def _pyramid_flow(g1: torch.Tensor, g2: torch.Tensor, radius: int = 100,
             coarse_r, patch))
 
     def m(i, j):
-        return torch.as_tensor(Ms[:, i, j], dtype=torch.float32,
-                               device=dev)[:, None, None]
+        return transfer.upload(np.asarray(Ms[:, i, j], np.float32),
+                               dev)[:, None, None]
 
     px = gxc + du
     py = gyc + dv
@@ -520,9 +520,8 @@ def clamp_match_params(
 
 def _frames(rgbs, device) -> torch.Tensor:
     """(B, H, W, 3) uint8 host frames -> (B, 3, H, W) uint8 on `device`."""
-    host = torch.from_numpy(np.ascontiguousarray(
-        np.stack(rgbs).transpose(0, 3, 1, 2)))
-    return host.to(device)
+    return transfer.upload(np.ascontiguousarray(
+        np.stack(rgbs).transpose(0, 3, 1, 2)), device)
 
 
 def match_images_dispatch_multi(

@@ -10,8 +10,9 @@ Backends:
 
 - ``"cuda"``: the fixed-count PCG kernel (``ops.pcg.pcg_fixed``), one call
   per GN step running every iteration on the device, in the tall layout when
-  ``ARAP_TALL_KERNEL`` is set. On CPU tensors the same wrapper runs its
-  plain torch version.
+  ``ARAP_TALL_KERNEL`` is set. On CUDA tensors a solve's GN steps are
+  captured once per shape as a CUDA graph and replayed (``_GraphChain``).
+  On CPU tensors the same wrapper runs its plain torch version.
 - ``"plain"``: ``pcg_solve`` in torch, with the optional ζ and rz early
   exits.
 - ``"auto"``: ``"cuda"`` when the operands are CUDA tensors and both
@@ -34,12 +35,15 @@ All functions take a leading batch dimension or none (see ops/energy.py).
 
 from __future__ import annotations
 
+import contextlib
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..utils import profiling
+from . import graphs
 from .energy import (
     ArapOperands,
     anneal_constraints,
@@ -223,32 +227,154 @@ def gn_step(x, ops: ArapOperands, cimg, cfg: SolverConfig, pcg_iters: float,
     the enqueue; once the device's launch queue is full, an enqueue also
     waits for the device, so on a device-bound run they hold device
     time."""
-    timer = profiling.TIMER
+    delta, iters = _gn_step(x, ops, cimg, cfg, pcg_iters, q_tol, rz_tol,
+                            profiling.TIMER.stage)
+    if cfg.backend == "cuda":
+        iters = torch.full(x.shape[:-3], float(iters), dtype=x.dtype,
+                           device=x.device)
+    return x + delta, iters
+
+
+def _gn_step(x, ops: ArapOperands, cimg, cfg: SolverConfig, pcg_iters: float,
+             q_tol: float, rz_tol: float, stage, tall: bool | None = None):
+    """``gn_step``'s work up to the update: (δ, PCG iterations), its two
+    parts timed by `stage`, the PCG kernel in the layout `tall` (None:
+    ``tall_kernel_enabled()``). On the cuda backend the iterations are the
+    budget, a Python int, so that a captured step launches nothing but the
+    step itself."""
     if cfg.backend not in ("cuda", "plain"):
         raise ValueError(f"gn_step needs a resolved backend, got {cfg.backend!r}")
-    with timer.stage("gn linearise"):
+    with stage("gn linearise"):
         s, c = trig(x)
         jtf, diag = jtf_and_diag(x, ops, cimg)
         if cfg.backend == "cuda":
-            budget = int(np.minimum(np.float32(cfg.max_pcg_iters),
-                                    np.float32(pcg_iters)))
+            budget = _budget(cfg, pcg_iters)
             bops = ops if x.dim() == 4 else _batched(ops)
             b = -jtf if x.dim() == 4 else -jtf[None]
             pre = guarded_invert(diag).reshape(b.shape)
             s = s.reshape(b.shape[0], *s.shape[-2:])
             c = c.reshape(b.shape[0], *c.shape[-2:])
-    with timer.stage("pcg launch"):
+    with stage("pcg launch"):
         if cfg.backend == "cuda":
             from .pcg import pcg_fixed
 
             delta = pcg_fixed(b, pre, s, c, bops.vmasks, bops.fitmask,
-                              bops.wf2, bops.wr2, budget).reshape(x.shape)
-            iters = torch.full(x.shape[:-3], float(budget), dtype=x.dtype,
-                               device=x.device)
+                              bops.wf2, bops.wr2, budget,
+                              tall).reshape(x.shape)
+            iters = budget
         else:
             delta, iters = pcg_solve(ops, s, c, jtf, diag, cfg.max_pcg_iters,
                                      pcg_iters, q_tol, rz_tol)
-    return x + delta, iters
+    return delta, iters
+
+
+def _budget(cfg: SolverConfig, pcg_iters: float) -> int:
+    """The cuda backend's PCG iterations of a GN step."""
+    return int(np.minimum(np.float32(cfg.max_pcg_iters),
+                          np.float32(pcg_iters)))
+
+
+class _GnGraph:
+    """One GN step captured as a CUDA graph on static buffers: the state
+    `x` (the step writes x + δ back into it, so replays chain), the
+    constraint image `cimg` and the operand leaves `ops`; and the PCG
+    launches (``ops.pcg.LAUNCHES``, ``LAUNCH_SHAPES``) a replay makes."""
+
+    def __init__(self, x, ops: ArapOperands, cimg, cfg: SolverConfig,
+                 budget: int, tall: bool):
+        from . import pcg
+
+        self.x, self.cimg = torch.empty_like(x), torch.empty_like(cimg)
+        self.ops = ArapOperands(**{k: torch.empty_like(v)
+                                   for k, v in vars(ops).items()})
+        launches, shapes = dict(pcg.LAUNCHES), Counter(pcg.LAUNCH_SHAPES)
+
+        def step():
+            delta, _ = _gn_step(self.x, self.ops, self.cimg, cfg, budget,
+                                0.0, 0.0, contextlib.nullcontext, tall)
+            self.x.add_(delta)  # x + δ in place: the same add kernel
+
+        self.graph, _ = graphs.capture(x.device, step)
+        # the capture ran nothing: what it counted is each replay's
+        self.launches = {k: pcg.LAUNCHES[k] - launches.get(k, 0)
+                         for k in pcg.LAUNCHES}
+        self.shapes = pcg.LAUNCH_SHAPES - shapes
+        pcg.LAUNCHES.update(launches)
+        pcg.LAUNCH_SHAPES.clear()
+        pcg.LAUNCH_SHAPES.update(shapes)
+
+    def replay(self) -> None:
+        from . import pcg
+
+        self.graph.replay()
+        for k, n in self.launches.items():
+            pcg.LAUNCHES[k] += n
+        pcg.LAUNCH_SHAPES.update(self.shapes)
+
+
+class _GraphChain:
+    """The GN steps of one solve on the cuda backend and CUDA tensors. Each
+    step runs as ``graphs.engage`` says for its ``key``: the first step of
+    a key the thread has not met runs ``gn_step``; the key's second step
+    captures it (stage "gn graph capture"); every later step of every
+    chain with that key replays it (stage "gn graph replay": the copies
+    into the graph's static buffers, the operands once a chain and the
+    constraint image once an anneal step, and the replay). The replayed
+    launches are the eager step's, in its order, so the states are bitwise
+    the eager chain's."""
+
+    def __init__(self, ops: ArapOperands, x):
+        self.ops = ops
+        # the state's and each operand leaf's layout (x + δ keeps x's)
+        self.layout = (graphs.layout(x),
+                       tuple(graphs.layout(t) for t in vars(ops).values()))
+        self.registry = graphs.registry("gn step")
+        self.loaded: dict = {}  # graph -> the cimg in its static buffer
+        self.iters = np.float32(0.0)
+
+    def key(self, budget: int, tall: bool) -> tuple:
+        """What a captured GN step's launches depend on: the state's and
+        the operand leaves' device, dtype, shape and strides, the PCG
+        budget and the kernel layout."""
+        return self.layout, budget, bool(tall)
+
+    def step(self, x, cimg, cfg: SolverConfig, pcg_iters: float):
+        from .pcg import tall_kernel_enabled
+
+        budget = _budget(cfg, pcg_iters)
+        # the float32 sum of gn_step's per-step counts
+        self.iters = np.float32(self.iters + np.float32(budget))
+        tall = tall_kernel_enabled()
+        key = self.key(budget, tall)
+        how = graphs.engage(self.registry, key)
+        if how == "eager":
+            return gn_step(x, self.ops, cimg, cfg, pcg_iters, 0.0, 0.0)[0]
+        timer = profiling.TIMER
+        if how == "capture":
+            with timer.stage("gn graph capture"):
+                self.registry[key] = _GnGraph(x, self.ops, cimg, cfg,
+                                              budget, tall)
+        g = self.registry[key]
+        with timer.stage("gn graph replay"):
+            if g not in self.loaded:
+                for k, v in vars(self.ops).items():
+                    getattr(g.ops, k).copy_(v)
+            if x is not g.x:
+                g.x.copy_(x)
+            if self.loaded.get(g) is not cimg:
+                g.cimg.copy_(cimg)
+                self.loaded[g] = cimg
+            g.replay()
+        return g.x
+
+    def finish(self, x):
+        """(x, total PCG iterations per problem) of the chain. A state left
+        in a static buffer is cloned out of it, so that the next chain of
+        the key cannot overwrite what this one's caller still reads."""
+        if any(x is g.x for g in self.loaded):
+            x = x.clone()
+        return x, torch.full(x.shape[:-3], float(self.iters), dtype=x.dtype,
+                             device=x.device)
 
 
 def anneal_solve_stats(ops: ArapOperands, cfg: SolverConfig):
@@ -267,11 +393,14 @@ def anneal_solve_stats(ops: ArapOperands, cfg: SolverConfig):
 
 
 def _per_gn_solve(ops: ArapOperands, cfg: SolverConfig, costs=None):
-    """The annealed schedule one ``gn_step`` at a time (`cfg` resolved, not
-    fused). Returns (x, total PCG iterations per problem); with `costs`
-    (a (..., num_anneal · gn_iters) tensor) each GN step's energy is
-    written into it on the device."""
+    """The annealed schedule one GN step at a time (`cfg` resolved, not
+    fused): ``gn_step`` each, or on the cuda backend and CUDA tensors a
+    ``_GraphChain``'s replays. Returns (x, total PCG iterations per
+    problem); with `costs` (a (..., num_anneal · gn_iters) tensor) each GN
+    step's energy is written into it on the device."""
     x = init_state(ops)
+    chain = (_GraphChain(ops, x) if cfg.backend == "cuda" and x.is_cuda
+             else None)
     tot = torch.zeros(x.shape[:-3], dtype=x.dtype, device=x.device)
     for i in range(cfg.num_anneal):
         alpha = np.float32(i + 1.0) / np.float32(cfg.num_anneal)
@@ -279,11 +408,16 @@ def _per_gn_solve(ops: ArapOperands, cfg: SolverConfig, costs=None):
         early = float(cfg.pcg_iters_early) > 0.0 and float(i) < float(cfg.anneal_split)
         pcg_iters = cfg.pcg_iters_early if early else cfg.pcg_iters
         for j in range(cfg.gn_iters):
-            x, it = gn_step(x, ops, cimg, cfg, pcg_iters, cfg.q_tolerance,
-                            cfg.rz_tolerance)
-            tot = tot + it
+            if chain is not None:
+                x = chain.step(x, cimg, cfg, pcg_iters)
+            else:
+                x, it = gn_step(x, ops, cimg, cfg, pcg_iters, cfg.q_tolerance,
+                                cfg.rz_tolerance)
+                tot = tot + it
             if costs is not None:
                 costs[..., i * cfg.gn_iters + j] = cost(x, ops, cimg)
+    if chain is not None:
+        x, tot = chain.finish(x)
     return x, tot
 
 

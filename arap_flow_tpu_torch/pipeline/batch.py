@@ -195,7 +195,7 @@ class BatchRunner:
             rgb = np.stack([t.rgb for t in chunk_tasks])
             if self.mesh is None:  # a mesh uploads each slice to its device
                 ops = ops.to(self.device)
-                rgb = torch.as_tensor(rgb, device=self.device)
+                rgb = transfer.upload(rgb, self.device)
             offs = np.asarray(
                 [(t.y0 - t.cy0, t.x0 - t.cx0) for t in chunk_tasks], np.int32)
         with self.timer.stage("solve+raster dispatch"):
@@ -225,8 +225,8 @@ class BatchRunner:
             cons = add_border_pins(np.asarray(cons, np.int32).reshape(-1, 4),
                                    W, H)
         ops = E.build_compact(arap_mask, cons, self.weights).to(self.device)
-        rgb_u8 = torch.as_tensor(np.ascontiguousarray(rgb.transpose(2, 0, 1)),
-                                 device=self.device)
+        rgb_u8 = transfer.upload(np.ascontiguousarray(rgb.transpose(2, 0, 1)),
+                                 self.device)
         _, flow, wrgb, wmask = _solve_and_raster(ops, rgb_u8, self.cfg)
         self.pending.append(((pair_idx, seg_id), transfer.mark(self.device),
                              flow, wrgb, wmask))

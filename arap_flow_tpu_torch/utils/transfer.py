@@ -1,4 +1,4 @@
-"""Device-to-host copies that wait only for the work they copy.
+"""Copies between host and device that wait only for the work they copy.
 
 ``t.cpu()`` on the default stream waits for everything queued on the device
 before it. The pipeline enqueues chunk k+1's matcher, then chunk k's solves,
@@ -7,6 +7,12 @@ a plain ``.cpu()`` there would wait for the solves too. So the producer
 records an event right after its last launch (``mark``), and ``fetch``
 copies on a side stream that waits only on that event, into pinned host
 buffers, and synchronises on the copy alone. On the CPU both are plain.
+
+The other way, a pageable upload (``torch.tensor(a, device=)``) returns
+only once everything queued on the device before it has run, so a host
+that uploads a chunk's inputs while the solves before it run is held to
+the device's pace. ``upload`` stages the array in pinned memory and copies
+it without blocking.
 """
 
 from __future__ import annotations
@@ -28,6 +34,19 @@ def mark(device) -> torch.cuda.Event | None:
     ev = torch.cuda.Event()
     ev.record(torch.cuda.current_stream(device))
     return ev
+
+
+def upload(a, device) -> torch.Tensor:
+    """A copy of host array `a` on `device`. On CUDA the copy is staged in
+    pinned memory and enqueued non-blocking on the current stream, so it
+    does not wait for the work queued before it (the caching host allocator
+    keeps the pinned buffer until the copy has run). On the CPU it is
+    ``torch.tensor(a)``."""
+    device = torch.device(device)
+    host = torch.tensor(np.asarray(a))
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def _side_stream(device) -> torch.cuda.Stream:
