@@ -45,6 +45,7 @@ card it is the batched path.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import os.path as osp
@@ -149,7 +150,8 @@ def scale_rotate(im: np.ndarray, mk: np.ndarray, size):
     """Preprocessing (the reference's para_gen.py:253-291): transpose
     portrait frames, then resize (+10 px slack; LANCZOS for the frame,
     NEAREST for the mask, both bitwise PIL's) and centre-crop to `size`
-    (w, h). Returns (preprocessed, im, mk)."""
+    (w, h). Returns (preprocessed, im, mk). The resize and crop of each
+    frame is the stage ``preprocess resize``."""
     if im.shape[:2] != mk.shape[:2]:
         raise ValueError(
             f"Image and mask must be of the same size but given "
@@ -167,8 +169,9 @@ def scale_rotate(im: np.ndarray, mk: np.ndarray, size):
         upper = h // 2 - size[1] // 2
         # the +10 slack keeps the crop box inside the resized frame
         box = (slice(upper, upper + size[1]), slice(left, left + size[0]))
-        im = np.ascontiguousarray(resize_lanczos(im, (w, h))[box])
-        mk = np.ascontiguousarray(resize_nearest(mk, (w, h))[box])
+        with TIMER.stage("preprocess resize"):
+            im = np.ascontiguousarray(resize_lanczos(im, (w, h))[box])
+            mk = np.ascontiguousarray(resize_nearest(mk, (w, h))[box])
         preprocessed = True
     return preprocessed, im, mk
 
@@ -178,7 +181,9 @@ class BackgroundPool:
     until the pool refills; files that fail to decode are dropped
     (para_gen.py:365-375, 484-497). Draws use the numpy Generator `rng` in
     the JAX package's order, so a seed gives the same backgrounds. Fitting
-    a background resizes it with the PIL-exact LANCZOS."""
+    a background resizes it with the PIL-exact LANCZOS. A draw from a
+    pool that has files (decode, upscale and crop) is the stage
+    ``background draw``."""
 
     def __init__(self, bg_dir, rng: np.random.Generator):
         self.rng = rng
@@ -205,17 +210,19 @@ class BackgroundPool:
         return bg[sy : sy + imh, sx : sx + imw, :3]
 
     def draw(self, shape) -> np.ndarray | None:
-        while self.paths:
-            if not self.tmp:
-                self.tmp = sorted(self.paths)
-            p = self.tmp[self.rng.integers(0, len(self.tmp))]
-            self.tmp.remove(p)
-            try:
-                bg = load_rgb(p)
-            except _DECODE_ERRORS:
-                self.paths.remove(p)
-                continue
-            return self.fit(bg, shape)
+        with (TIMER.stage("background draw") if self.paths
+              else contextlib.nullcontext()):
+            while self.paths:
+                if not self.tmp:
+                    self.tmp = sorted(self.paths)
+                p = self.tmp[self.rng.integers(0, len(self.tmp))]
+                self.tmp.remove(p)
+                try:
+                    bg = load_rgb(p)
+                except _DECODE_ERRORS:
+                    self.paths.remove(p)
+                    continue
+                return self.fit(bg, shape)
         return None
 
 
