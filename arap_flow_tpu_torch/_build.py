@@ -183,6 +183,10 @@ def load(stem: str) -> ctypes.CDLL:
         lib.pcg_active_clusters.restype = i
         lib.pcg_fixed_f32.argtypes = [vp] * 11 + [i] * 10 + [vp]
         lib.pcg_fixed_f32.restype = i
+        lib.pcg_spread_ctas.argtypes = [i] * 3
+        lib.pcg_spread_ctas.restype = i
+        lib.pcg_spread_f32.argtypes = [vp] * 9 + [i] * 8 + [vp]
+        lib.pcg_spread_f32.restype = i
     elif stem == "fused_solver":
         lib.fused_error_string.argtypes = [i]
         lib.fused_error_string.restype = ctypes.c_char_p

@@ -7,21 +7,28 @@ Four parts:
   per-problem weights, the same math as the TPU kernels ``_pcg_kernel`` and
   ``_pcg_kernel_batched`` (loop-constant planes of
   ``_precompute_const_planes`` + the factored JtJ of ``_jtj_factored``).
-- ``pcg_plan``: the launch plan of the CUDA kernel for (B, H, W), pure
-  Python given the card's active clusters of each candidate plan: the
-  thread-block cluster per problem, the rows each CTA owns, and which
-  planes live in shared memory. ``card_plan`` fills in those counts from
-  the device (cudaOccupancyMaxActiveClusters) and caches the plan.
+- ``kernel_plan``: the launch plan of the CUDA kernel for (B, H, W), pure
+  Python given the card's active clusters of each candidate plan and its
+  SMs. Where p fits a thread-block cluster of 16 CTAs, a cluster plan
+  (``pcg_plan``): the CTAs a problem, the rows each owns, and which planes
+  live in shared memory. Else the spread plan (``spread_plan``): one
+  problem over the whole card, the batch one problem after another, where
+  its state fits the card's shared memory; else the streamed plan.
+  ``card_plan`` fills in the counts from the device and caches the plan.
 - ``pcg_fixed``: the wrapper. A CPU tensor goes to ``pcg_fixed_plain``; a
-  CUDA tensor goes to the cluster kernel in ``csrc/pcg.cu`` (built on first
-  use by ``_build``), one launch a call, or raises. There is no fallback
-  between them.
+  CUDA tensor goes to ``csrc/pcg.cu`` (built on first use by ``_build``),
+  one launch a call, or raises. There is no fallback between them. The
+  spread plan's launches on one device share the device's handshake words
+  (``g_spread_sync``), so they must not overlap: issue them on one stream,
+  as the port does (the current stream, and graphs replayed on it), or
+  order the streams by events.
 - ``LAUNCHES``: launch counts per kernel; the wrapper adds one each time it
-  launches the CUDA kernel (one call runs all ``iters`` iterations), and
-  ``LAUNCH_SHAPES`` the same launches by problem shape (B, H, W).
+  launches the CUDA kernel (one call runs all ``iters`` iterations),
+  ``LAUNCH_SHAPES`` the same launches by problem shape (B, H, W), and
+  ``PLAN_CALLS`` by plan kind (``PcgPlan.kind``).
 
 The tall layout (``ARAP_TALL_KERNEL``, the TPU's ``pcg_pallas_tall`` and
-``pcg_pallas_batched_tall``) is a template flag of the same kernel that
+``pcg_pallas_batched_tall``) is a template flag of the same kernels that
 reads p as one stacked (3H, W) plane per problem; ``tall=None`` reads the
 variable at call time. It is counted as ``pcg_fixed_tall``.
 """
@@ -41,27 +48,43 @@ from .stencil import DIRS, shift
 
 LAUNCHES: dict[str, int] = {"pcg_fixed": 0, "pcg_fixed_tall": 0}
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
+PLAN_CALLS: collections.Counter = collections.Counter()
 
 # The card the plan is made for (an H100): shared memory one block can use,
 # of which the kernel's own static arrays take under 1 KB.
 SMEM_PER_BLOCK = 232_448
 _STATIC_SMEM = 1024
 MAX_CLUSTER = 16
+# The spread kernel's CTAs at most
+MAX_SPREAD = 256
 
 
 class PcgPlan(NamedTuple):
-    """Launch plan of the cluster kernel: `cluster` CTAs per problem, CTA k
-    owning rows [k·rows_per_cta, (k + 1)·rows_per_cta) ∩ [0, H); p's band
-    in shared memory when `resident` (else the streamed plan: p in device
-    memory), beside the halo rows of p that the neighbours push; `groups`
-    of (s and c with halo rows, r, Ap, δ) also in shared memory, in that
-    order; `smem_bytes` of dynamic shared memory a CTA."""
+    """Launch plan of the PCG kernel. A cluster plan: `cluster` CTAs per
+    problem, CTA k owning rows [k·rows_per_cta, (k + 1)·rows_per_cta) ∩
+    [0, H); p's band in shared memory when `resident` (else the streamed
+    plan: p in device memory), beside the halo rows of p that the
+    neighbours push; `groups` of (s and c with halo rows, r, Ap, δ) also in
+    shared memory, in that order; `smem_bytes` of dynamic shared memory a
+    CTA. The spread plan (`px_per_cta` > 0): one launch of `cluster` CTAs
+    over the whole card, CTA k owning the pixels [k·px_per_cta, (k + 1)·
+    px_per_cta) ∩ [0, H·W) of each problem in turn, its p, s and c with
+    halos, r, Ap and δ in shared memory (`rows_per_cta` 0, `resident`
+    True, `groups` 0)."""
 
     cluster: int
     rows_per_cta: int
     resident: bool
     smem_bytes: int
     groups: int
+    px_per_cta: int = 0
+
+    @property
+    def kind(self) -> str:
+        """"spread", "resident" or "streamed"."""
+        if self.px_per_cta:
+            return "spread"
+        return "resident" if self.resident else "streamed"
 
 
 GroupBytes = Callable[[int, int], tuple[int, ...]]
@@ -132,6 +155,45 @@ def pcg_plan(B: int, H: int, W: int, active: Callable[[PcgPlan], int],
     if not runs:
         return plans[-1]
     return min(runs, key=lambda pn: (-(-B // pn[1]), -pn[0].cluster))[0]
+
+
+def _spread_bytes(px: int, W: int) -> int:
+    """Shared-memory bytes of a spread CTA of `px` pixels: p (3 planes), s
+    and c, each with W pixels of halo on both sides, then r, Ap and δ."""
+    return 4 * (5 * (px + 2 * W) + 9 * px)
+
+
+def spread_plan(H: int, W: int, sms: int) -> PcgPlan | None:
+    """The spread plan of an H×W problem on a card of `sms` SMs, one CTA an
+    SM: the pixels split as evenly as the most CTAs allow (an even count a
+    band, for pixel pairs), none with fewer than W pixels (a band's halos
+    then come from its two neighbours alone). None where a band's state
+    does not fit a block's shared memory."""
+    HW = H * W
+    budget = SMEM_PER_BLOCK - _STATIC_SMEM
+    for n in range(min(sms, MAX_SPREAD), 1, -1):
+        px = -(-HW // n)
+        px += px % 2
+        ctas = -(-HW // px)
+        if _spread_bytes(px, W) > budget:
+            return None
+        if px >= W and HW - (ctas - 1) * px >= W:
+            return PcgPlan(ctas, 0, True, _spread_bytes(px, W), 0, px)
+    return None
+
+
+def kernel_plan(B: int, H: int, W: int, active: Callable[[PcgPlan], int],
+                sms: int) -> PcgPlan:
+    """The PCG kernel's plan for B problems of H×W on a card of `sms` SMs,
+    given `active` (``pcg_plan``'s; for a spread plan 1 where the card
+    holds all its CTAs at once, else 0): ``pcg_plan``'s where p fits a
+    16-CTA cluster, else the spread plan where it exists and the card holds
+    it, else the streamed plan."""
+    plan = pcg_plan(B, H, W, active)
+    if plan.resident:
+        return plan
+    spread = spread_plan(H, W, sms)
+    return spread if spread is not None and active(spread) > 0 else plan
 
 
 def tall_kernel_enabled() -> bool:
@@ -257,9 +319,11 @@ def pcg_fixed(b, pre, s, c, vmasks, fitmask, wf2, wr2, iters: int,
               tall: bool | None = None) -> torch.Tensor:
     """δ (B,3,H,W) after `iters` PCG iterations (see ``pcg_fixed_plain`` for
     the arguments). CPU tensors run the plain version; CUDA tensors run the
-    cluster kernel in one launch on the current stream, without
-    synchronising, with ``card_plan``'s plan, in the tall layout when `tall`
-    (None: ``tall_kernel_enabled()``)."""
+    kernel in one launch on the current stream, without synchronising, with
+    ``card_plan``'s plan, in the tall layout when `tall` (None:
+    ``tall_kernel_enabled()``). Two spread-plan calls on one device must
+    not run at once (on two streams, or a graph replayed beside a call):
+    they share the device's handshake words and would mix their epochs."""
     if b.device.type == "cpu":
         return pcg_fixed_plain(b, pre, s, c, vmasks, fitmask, wf2, wr2, iters)
     if b.device.type != "cuda":
@@ -272,30 +336,41 @@ def pcg_fixed(b, pre, s, c, vmasks, fitmask, wf2, wr2, iters: int,
 
 def _launch(plan: PcgPlan, b, pre, s, c, vmasks, fitmask, wf2, wr2,
             iters: int, tall: bool) -> torch.Tensor:
-    """One launch of the cluster kernel with `plan` on CUDA tensors (the
-    body of ``pcg_fixed``; ``chip_smoke.py`` also times other plans)."""
+    """One launch of the kernel with `plan` on CUDA tensors (the body of
+    ``pcg_fixed``; ``chip_smoke.py`` also times other plans)."""
     from .. import _build
 
     B, H, W, iters, w = _kernel_operands("pcg_fixed", b, pre, s, c, vmasks,
                                          fitmask, wf2, wr2, iters)
     lib = _build.load("pcg")
     delta = torch.empty_like(b)
-    # device-memory scratch for the planes the plan keeps off the chip
-    r = torch.empty_like(b) if plan.groups < 2 else None
-    ap = torch.empty_like(b) if plan.groups < 3 else None
-    p = None if plan.resident else torch.empty_like(b)
     with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream(b.device).cuda_stream
-        err = lib.pcg_fixed_f32(
-            *(_ptr(t) for t in (b, pre, s, c, vmasks, fitmask, w, delta, r,
-                                p, ap)),
-            B, H, W, iters, int(tall), plan.cluster, plan.rows_per_cta,
-            int(plan.resident), plan.groups, plan.smem_bytes,
-            ctypes.c_void_p(stream),
-        )
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(b.device).cuda_stream)
+        if plan.px_per_cta:
+            # each CTA's z at its first and last W pixels, read by its
+            # neighbours: two buffers, used in turn
+            edge = b.new_empty((2, plan.cluster, 2, 3, W))
+            err = lib.pcg_spread_f32(
+                *(_ptr(t) for t in (b, pre, s, c, vmasks, fitmask, w, delta,
+                                    edge)),
+                B, H, W, iters, int(tall), plan.cluster, plan.px_per_cta,
+                plan.smem_bytes, stream)
+        else:
+            # device-memory scratch for the planes the plan keeps off the
+            # chip
+            r = torch.empty_like(b) if plan.groups < 2 else None
+            ap = torch.empty_like(b) if plan.groups < 3 else None
+            p = None if plan.resident else torch.empty_like(b)
+            err = lib.pcg_fixed_f32(
+                *(_ptr(t) for t in (b, pre, s, c, vmasks, fitmask, w, delta,
+                                    r, p, ap)),
+                B, H, W, iters, int(tall), plan.cluster, plan.rows_per_cta,
+                int(plan.resident), plan.groups, plan.smem_bytes, stream)
     _raise_on("pcg_fixed", lib.pcg_error_string, err)
     LAUNCHES["pcg_fixed_tall" if tall else "pcg_fixed"] += 1
     LAUNCH_SHAPES[(B, H, W)] += 1
+    PLAN_CALLS[plan.kind] += 1
     return delta
 
 
@@ -303,23 +378,33 @@ def active_clusters(plan: PcgPlan, B: int, W: int, tall: bool = False,
                     device=None) -> int:
     """How many clusters of `plan` (for B problems of width W) the CUDA
     device holds at once (cudaOccupancyMaxActiveClusters; default: the
-    current device); 0 means the plan cannot run."""
+    current device); 0 means the plan cannot run. A spread plan runs one
+    problem at a time over the whole card: 1 where the device holds all its
+    CTAs at once (the occupancy API's blocks an SM times the SMs), else
+    0."""
     from .. import _build
 
     lib = _build.load("pcg")
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        n = lib.pcg_active_clusters(
-            B, W, plan.cluster, int(plan.resident), plan.groups,
-            plan.smem_bytes, int(tall), ctypes.c_void_p(stream))
+        if plan.px_per_cta:
+            n = lib.pcg_spread_ctas(W, plan.smem_bytes, int(tall))
+        else:
+            stream = torch.cuda.current_stream().cuda_stream
+            n = lib.pcg_active_clusters(
+                B, W, plan.cluster, int(plan.resident), plan.groups,
+                plan.smem_bytes, int(tall), ctypes.c_void_p(stream))
     if n < 0:
         _raise_on("active_clusters", lib.pcg_error_string, -n)
+    if plan.px_per_cta:
+        return int(n >= plan.cluster)
     return n
 
 
 @functools.cache
 def card_plan(B: int, H: int, W: int, tall: bool, device) -> PcgPlan:
-    """``pcg_plan`` on a CUDA device: each candidate plan's active clusters
-    queried there, once per (B, H, W, layout, device)."""
-    return pcg_plan(B, H, W, lambda plan: active_clusters(plan, B, W, tall,
-                                                          device))
+    """``kernel_plan`` on a CUDA device: each candidate plan's active
+    clusters queried there, and its SMs, once per (B, H, W, layout,
+    device)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return kernel_plan(B, H, W, lambda plan: active_clusters(
+        plan, B, W, tall, device), sms)

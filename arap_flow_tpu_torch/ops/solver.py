@@ -278,7 +278,8 @@ class _GnGraph:
     """One GN step captured as a CUDA graph on static buffers: the state
     `x` (the step writes x + δ back into it, so replays chain), the
     constraint image `cimg` and the operand leaves `ops`; and the PCG
-    launches (``ops.pcg.LAUNCHES``, ``LAUNCH_SHAPES``) a replay makes."""
+    launches (``ops.pcg.LAUNCHES``, ``LAUNCH_SHAPES``, ``PLAN_CALLS``) a
+    replay makes."""
 
     def __init__(self, x, ops: ArapOperands, cimg, cfg: SolverConfig,
                  budget: int, tall: bool):
@@ -287,7 +288,8 @@ class _GnGraph:
         self.x, self.cimg = torch.empty_like(x), torch.empty_like(cimg)
         self.ops = ArapOperands(**{k: torch.empty_like(v)
                                    for k, v in vars(ops).items()})
-        launches, shapes = dict(pcg.LAUNCHES), Counter(pcg.LAUNCH_SHAPES)
+        launches = dict(pcg.LAUNCHES)
+        shapes, plans = Counter(pcg.LAUNCH_SHAPES), Counter(pcg.PLAN_CALLS)
 
         def step():
             delta, _ = _gn_step(self.x, self.ops, self.cimg, cfg, budget,
@@ -299,9 +301,12 @@ class _GnGraph:
         self.launches = {k: pcg.LAUNCHES[k] - launches.get(k, 0)
                          for k in pcg.LAUNCHES}
         self.shapes = pcg.LAUNCH_SHAPES - shapes
+        self.plans = pcg.PLAN_CALLS - plans
         pcg.LAUNCHES.update(launches)
-        pcg.LAUNCH_SHAPES.clear()
-        pcg.LAUNCH_SHAPES.update(shapes)
+        for counter, before in ((pcg.LAUNCH_SHAPES, shapes),
+                                (pcg.PLAN_CALLS, plans)):
+            counter.clear()
+            counter.update(before)
 
     def replay(self) -> None:
         from . import pcg
@@ -310,6 +315,7 @@ class _GnGraph:
         for k, n in self.launches.items():
             pcg.LAUNCHES[k] += n
         pcg.LAUNCH_SHAPES.update(self.shapes)
+        pcg.PLAN_CALLS.update(self.plans)
 
 
 class _GraphChain:

@@ -9,17 +9,19 @@ Phases, each reported on its own line; any failure exits non-zero:
 1. build: compiles the three CUDA libraries from ``arap_flow_tpu_torch/csrc``
    (pcg, zncc, fused_solver), one nvcc process per source, all started
    together, and loads them.
-2. PCG kernel vs plain: for each shape, the cluster kernel's plan
-   (``card_plan``: CTAs a problem, rows a CTA, resident or streamed, planes
-   in shared memory), how many of its clusters the card holds at once
-   (cudaOccupancyMaxActiveClusters, both layouts) and the waves; then
+2. PCG kernel vs plain: for each shape, the kernel's plan (``card_plan``:
+   CTAs a problem, rows a CTA, resident, or spread over the card with its
+   pixels a CTA, planes in shared memory), how many of its clusters the
+   card holds at once (cudaOccupancyMaxActiveClusters, both layouts; a
+   spread plan: 1 where the card holds all its CTAs) and the waves; then
    ``pcg_fixed`` (CUDA) in both layouts, standard and tall, against
    ``pcg_fixed_plain`` on the same numpy-seeded problems, on the card: 1
    iteration to rtol/atol 1e-4; at 160 iterations both converged (‖b −
    JtJ·δ‖ ≤ 1e-5·‖b‖ for every problem) with max |Δδ| < 0.01; two kernel
    runs bitwise equal; the tall layout within 1e-5 of the standard one. The
-   shapes cover both memory plans (384×640 the largest resident one,
-   480×854 and 512×896 streamed). Then ms per 400-iteration call of the
+   shapes cover the three plans (384×640 the largest resident one, 480×854
+   and 512×896 spread, 576×1024 streamed: its state does not fit the card's
+   shared memory). Then ms per 400-iteration call of the
    cluster kernel beside the tall layout and the plain version, and the
    pipeline's largest chunk (B = 24 64×128) at the earlier 5-CTA plan
    against ``pcg_plan``'s one-wave plan, in turns.
@@ -406,17 +408,20 @@ def pcg_problem(B: int, H: int, W: int, seed: int, device):
 
 # Phase 2's shapes besides the main path's: a thin one (one row a CTA),
 # B = 3, the pipeline's chunk, the largest resident bucket (p only in
-# shared memory), the two streamed shapes (the full frame and the largest
-# bucket), the pipeline's largest chunk (pipeline/batch.py's MAX_CHUNK of
-# the smallest bucket), a batch large enough for one-CTA clusters and an
-# odd width (one pixel a thread; even widths take pixel pairs).
+# shared memory), the two spread shapes (the full frame and the largest
+# bucket), a streamed one (576×1024: a band's state does not fit a block's
+# shared memory, so p lives in device memory), the pipeline's largest
+# chunk (pipeline/batch.py's MAX_CHUNK of the smallest bucket), a batch
+# large enough for one-CTA clusters and an odd width (one pixel a thread;
+# even widths take pixel pairs).
 KERNEL_SHAPES = ((1, 16, 128), (3, 224, 384), (4, 192, 256), (1, 384, 640),
-                 (1, 480, 854), (1, 512, 896), (24, 64, 128), (72, 16, 128),
-                 (3, 33, 85))
+                 (1, 480, 854), (1, 512, 896), (1, 576, 1024), (24, 64, 128),
+                 (72, 16, 128), (3, 33, 85))
 # 400-iteration calls timed besides the main path's: the thin shape (the
 # kernel's fixed cost an iteration), the largest resident bucket, the full
-# frame (streamed) and the largest chunk.
-TIMED_SHAPES = ((1, 16, 128), (1, 384, 640), (1, 480, 854), (24, 64, 128))
+# frame (spread), the streamed shape and the largest chunk.
+TIMED_SHAPES = ((1, 16, 128), (1, 384, 640), (1, 480, 854), (1, 576, 1024),
+                (24, 64, 128))
 
 # At 160 iterations CG has converged on these problems: the plain version
 # reaches ≤ 3e-7·‖b‖ at every shape below (CPU run), so a bound of 1e-5·‖b‖
@@ -504,9 +509,13 @@ def plan_line(B: int, H: int, W: int, label: str = "phase 2 plan") -> str:
         raise AssertionError(f"no cluster of {plans} fits the card")
     plan = plans[0]
     tall = "" if plans[1] == plan else f", tall cluster {plans[1].cluster}"
+    if plan.kind == "spread":
+        return (f"{label} B={B} {H}x{W}: spread over {plan.cluster} CTAs, "
+                f"{plan.px_per_cta} px a CTA, {plan.groups} groups in shared "
+                f"memory, {plan.smem_bytes} B; the card holds it "
+                f"(tall {act[1]}{tall}), {B} problem(s) in turn")
     return (f"{label} B={B} {H}x{W}: cluster {plan.cluster}, "
-            f"{plan.rows_per_cta} rows a CTA, "
-            f"{'resident' if plan.resident else 'streamed'}, "
+            f"{plan.rows_per_cta} rows a CTA, {plan.kind}, "
             f"{plan.groups} groups in shared memory, {plan.smem_bytes} B; "
             f"active clusters {act[0]} (tall {act[1]}{tall}), "
             f"{-(-B // act[0])} wave(s)")

@@ -166,7 +166,7 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-# two crop buckets at B = 1 and 4, and a streamed-plan full frame
+# two crop buckets at B = 1 and 4, and a spread-plan full frame
 # (436×1024: p does not fit a 16-CTA cluster) given unbatched
 CARD_SHAPES = [(1, 96, 128), (4, 96, 128), (1, 192, 256), (4, 192, 256),
                (None, 436, 1024)]

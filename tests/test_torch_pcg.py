@@ -159,9 +159,12 @@ def cuda_device():
 
 
 # (B, H, W) on the card: the resident plan (16×128: one row a CTA, every
-# plane in shared memory), the streamed plan (480×854, the full frame) and
-# the pipeline's largest chunk (B = 24 64×128, one wave of 4-CTA clusters)
-CARD_SHAPES = ((1, 16, 128), (1, 480, 854), (24, 64, 128))
+# plane in shared memory), the spread plan (480×854, the full frame: one
+# problem over the whole card), the streamed plan (576×1024: a band's state
+# does not fit a block's shared memory) and the pipeline's largest chunk
+# (B = 24 64×128, one wave of 4-CTA clusters)
+CARD_SHAPES = ((1, 16, 128), (1, 480, 854), (1, 576, 1024), (24, 64, 128))
+CARD_KINDS = {(480, 854): "spread", (576, 1024): "streamed"}
 
 
 @pytest.mark.cuda
@@ -171,10 +174,10 @@ CARD_SHAPES = ((1, 16, 128), (1, 480, 854), (24, 64, 128))
 def test_kernel_matches_plain_on_card(cuda_device, B, H, W, tall):
     """On the card: the CUDA kernel against its plain version (1 iteration
     to 1e-4; every problem converged at 160 iterations; bitwise
-    repeatable), in both memory plans and both layouts, one launch a call;
+    repeatable), in the three plans and both layouts, one launch a call;
     the card holds the whole batch at once."""
     plan = TP.card_plan(B, H, W, tall, cuda_device)
-    assert plan.resident == ((H, W) != (480, 854))
+    assert plan.kind == CARD_KINDS.get((H, W), "resident")
     assert TP.active_clusters(plan, B, W, tall, cuda_device) >= B
     probs = [_problem(H, W, seed=8 + k) for k in range(B)]
     ports = [_port_args(*p)[1] for p in probs]
