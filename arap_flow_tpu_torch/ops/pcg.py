@@ -328,20 +328,12 @@ def pcg_fixed(b, pre, s, c, vmasks, fitmask, wf2, wr2, iters: int,
         return pcg_fixed_plain(b, pre, s, c, vmasks, fitmask, wf2, wr2, iters)
     if b.device.type != "cuda":
         raise ValueError(f"pcg_fixed: no kernel for device {b.device}")
-    tall = tall_kernel_enabled() if tall is None else bool(tall)
-    B, _, H, W = b.shape
-    return _launch(card_plan(B, H, W, tall, b.device), b, pre, s, c, vmasks,
-                   fitmask, wf2, wr2, iters, tall)
-
-
-def _launch(plan: PcgPlan, b, pre, s, c, vmasks, fitmask, wf2, wr2,
-            iters: int, tall: bool) -> torch.Tensor:
-    """One launch of the kernel with `plan` on CUDA tensors (the body of
-    ``pcg_fixed``; ``chip_smoke.py`` also times other plans)."""
     from .. import _build
 
+    tall = tall_kernel_enabled() if tall is None else bool(tall)
     B, H, W, iters, w = _kernel_operands("pcg_fixed", b, pre, s, c, vmasks,
                                          fitmask, wf2, wr2, iters)
+    plan = card_plan(B, H, W, tall, b.device)
     lib = _build.load("pcg")
     delta = torch.empty_like(b)
     with torch.cuda.device(b.device):

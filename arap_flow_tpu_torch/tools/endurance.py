@@ -45,8 +45,9 @@ caches in place of XLA's compile set:
 
 Exits 1 when a gate fails. ``--device cpu`` runs the same loop on the CPU's
 plain versions (the card's counters then stay 0); the tests run it there at
-a cut. On the card the default run takes minutes; ``chip_smoke.py`` phase
-13 runs it in-process at ``--pairs 48 --block 4``.
+a cut. On the card the default run takes minutes; the card tests
+(tests/test_torch_card_pipelines.py) run it in-process at ``--pairs 48
+--block 4``.
 """
 
 from __future__ import annotations

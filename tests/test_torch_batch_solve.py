@@ -238,48 +238,6 @@ def test_tall_wrapper_on_cpu_is_plain_and_not_counted(monkeypatch):
     assert TP.LAUNCHES == before
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with CUDA")
-    return torch.device("cuda", 0)
-
-
-@pytest.mark.cuda
-def test_tall_kernel_matches_plain_and_standard_on_card(cuda_device):
-    """On the card: the tall layout against the plain version (1 iteration
-    to 1e-4; converged at 160) and against the standard layout (equal)."""
-    probs, arrs = _linear_problems(range(3), 19)
-    args = [a.to(cuda_device) for a in _port_args(probs, arrs)]
-    n0 = dict(TP.LAUNCHES)
-    torch.testing.assert_close(TP.pcg_fixed(*args, 1, tall=True),
-                               TP.pcg_fixed_plain(*args, 1),
-                               rtol=1e-4, atol=1e-4)
-    n = CONVERGED_ITERS
-    tall = TP.pcg_fixed(*args, n, tall=True)
-    assert torch.equal(tall, TP.pcg_fixed(*args, n, tall=True))
-    assert (tall - TP.pcg_fixed(*args, n, tall=False)).abs().max() <= 1e-5
-    plain = TP.pcg_fixed_plain(*args, n).cpu().numpy()
-    for i, o in enumerate(probs):
-        _assert_converged(tall[i].cpu().numpy(), plain[i], o, arrs["s"][i],
-                          arrs["c"][i], arrs["jtf"][i])
-    assert TP.LAUNCHES["pcg_fixed_tall"] == n0["pcg_fixed_tall"] + 3
-    assert TP.LAUNCHES["pcg_fixed"] == n0["pcg_fixed"] + 1
-
-
-@pytest.mark.cuda
-def test_solve_batch_on_card_equals_per_problem(cuda_device):
-    _, tprobs = _batch([0, 1, 2])
-    dev = [TE.ArapOperands(**{k: v.to(cuda_device) for k, v in vars(o).items()})
-           for o in tprobs]
-    cfg = TS.SolverConfig(num_anneal=2, gn_iters=2, max_pcg_iters=40,
-                          pcg_iters=40.0)
-    _, flows = TS.solve_batch(_stack_port(dev), cfg)
-    for i, o in enumerate(dev):
-        _, ref = TS.solve(o, cfg)
-        assert (flows[i] - ref).abs().max() <= 1e-4
-
-
 def drift_report(iters: int = 40) -> None:
     """Prints the 40-iteration drift figures quoted in
     test_plain_matches_jax_batched_kernel: max |Δδ| between the port, the

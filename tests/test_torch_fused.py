@@ -214,46 +214,3 @@ def test_deformer_fused_simple_and_crop(crop, plain_calls):
     assert d.max() < 0.05 and np.median(d) < 1e-3
     assert fused.flow.shape == (40, 64, 2)
     assert (fused.warped_mask != ref.warped_mask).mean() <= 0.005
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with CUDA")
-    return torch.device("cuda", 0)
-
-
-def _stacked_on(device, B, H, W):
-    """B of the interior problems at H×W (seeds 6, 7, ...), stacked, with
-    their JAX operands."""
-    both = [(JE.build_operands(*_problem(H, W, seed)),
-             TE.build_operands(*_problem(H, W, seed), device=device))
-            for seed in range(6, 6 + B)]
-    ops = TE.ArapOperands(**{k: torch.stack([getattr(t, k) for _, t in both])
-                             for k in vars(both[0][1])})
-    return [j for j, _ in both], ops
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,H,W,sched", [
-    (1, 16, 128, SHORT),
-    # the pipeline's largest chunk (4-CTA clusters, one wave)
-    (24, 64, 128, dict(num_anneal=2, gn_iters=2, max_pcg_iters=40,
-                       pcg_iters=40.0)),
-    # the full frame: the streamed plan
-    (1, 480, 854, dict(num_anneal=1, gn_iters=2, max_pcg_iters=40,
-                       pcg_iters=40.0)),
-], ids=["16x128", "B24-64x128", "480x854-streamed"])
-def test_kernel_matches_plain_on_card(cuda_device, B, H, W, sched):
-    """On the card: the cluster kernel against its plain version at the
-    JAX fused-kernel tolerances; one launch a call; bitwise repeatable."""
-    jops, ops = _stacked_on(cuda_device, B, H, W)
-    cfg = TS.SolverConfig(**sched)
-    n0 = TF.LAUNCHES["anneal_solve_fused"]
-    k = TF.anneal_solve_fused(ops, cfg)
-    assert torch.equal(k, TF.anneal_solve_fused(ops, cfg))
-    assert TF.LAUNCHES["anneal_solve_fused"] == n0 + 2
-    plain = TF.anneal_solve_fused_plain(ops, cfg)
-    for b in range(B):
-        _assert_close_solve(k[b].cpu().numpy(), plain[b].cpu().numpy(),
-                            jops[b])

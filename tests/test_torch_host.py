@@ -178,8 +178,21 @@ def _port_sources():
                   if "_build" not in p.relative_to(PORT).parts)
 
 
+def _card_sources():
+    """The card check: the launcher, the card test files it runs and their
+    helper, which must run where neither jax nor PIL is installed."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    files = chip_smoke.card_files()
+    assert {f.name for f in files} >= {"test_torch_card_kernels.py",
+                                       "test_torch_card_paths.py",
+                                       "test_torch_card_pipelines.py"}
+    return [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_card.py", *files]
+
+
 def test_port_never_imports_jax_source():
-    files = _port_sources() + [ROOT / "chip_smoke.py"]
+    files = _port_sources() + _card_sources()
     assert len(files) > 15
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
@@ -187,9 +200,9 @@ def test_port_never_imports_jax_source():
 
 
 def test_port_never_imports_jax_at_runtime():
-    """Importing every port module (and the smoke script) loads neither jax
-    nor arap_flow_tpu, nor PIL (the machine with the card has none of
-    them)."""
+    """Importing every port module, the card launcher, its test files and
+    their helper loads neither jax nor arap_flow_tpu, nor PIL: the port
+    runs where none of them is installed."""
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in _port_sources() if p.name != "__init__.py"
@@ -197,9 +210,11 @@ def test_port_never_imports_jax_at_runtime():
     assert {"arap_flow_tpu_torch.compat.opt_api", "arap_flow_tpu_torch.ops.lm",
             "arap_flow_tpu_torch.ops.generic",
             "arap_flow_tpu_torch.ops.graph"} <= set(mods)
+    mods += [f.stem for f in _card_sources()]
     code = (
         "import sys, importlib\n"
-        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "sys.path.insert(0, 'tests')\n"
+        f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'arap_flow_tpu', 'PIL')]\n"

@@ -8,8 +8,8 @@ unknowns in the caller's buffers are within 1e-4 of JAX's (observed
 the trust-region solver (``lm._lm_inner`` reproduced within 1e-5), an
 lIterations sweep honours the budget without building or loading any
 library, the writeback's rejects (a list, a torch tensor) and accepts (a
-strided view), and lIterations = 0 as a no-op of the GN step. The
-``cuda``-marked case holds the facade on the card to the CPU.
+strided view), and lIterations = 0 as a no-op of the GN step. The facade
+on the card is held to the CPU in tests/test_torch_card_paths.py.
 """
 
 import numpy as np
@@ -185,29 +185,3 @@ def test_state_holds_its_device():
     assert opt.Opt_NewState().device == torch.device("cuda")
     with pytest.raises(ValueError):
         opt.Opt_ProblemDefine(state, "arap_plan.t", "conjugateGradient")
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with CUDA")
-    return torch.device("cuda", 0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["gaussNewtonGPU", "LMGPU"])
-def test_facade_on_the_card_matches_the_cpu(cuda_device, kind):
-    """GN on the card is one pcg_fixed launch a step (the cluster kernel);
-    both solver kinds land within 0.05 px of the CPU's plain torch."""
-    from arap_flow_tpu_torch.ops import pcg
-
-    pcg.LAUNCHES["pcg_fixed"] = 0
-    gpu, _, _ = _lifecycle(opt, kind, l_iter=80, device=cuda_device)
-    cpu, _, _ = _lifecycle(opt, kind, l_iter=80, device="cpu")
-    assert pcg.LAUNCHES["pcg_fixed"] == (4 if kind == "gaussNewtonGPU" else 0)
-    np.testing.assert_allclose(gpu[0], cpu[0], rtol=0, atol=0.05)
-    params = _params()
-    before = params[0].copy()
-    _lifecycle(opt, "gaussNewtonGPU", n_iter=1, l_iter=0, device=cuda_device,
-               params=params)
-    assert params[0].tobytes() == before.tobytes()

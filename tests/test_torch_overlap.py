@@ -30,7 +30,6 @@ from arap_flow_tpu_torch.io.image import save_image
 from arap_flow_tpu_torch.ops.solver import SolverConfig
 from arap_flow_tpu_torch.pipeline import para_gen as TP
 from arap_flow_tpu_torch.utils import transfer
-from arap_flow_tpu_torch.utils.config import FrameworkConfig
 from arap_flow_tpu_torch.utils.profiling import StageTimer
 
 torch.set_num_threads(2)
@@ -188,18 +187,6 @@ def test_ramp_up_chunk_within_1e3(run):
                                        "tmpCnstr"):
             with open(fa[rel], "rb") as a, open(fb[rel], "rb") as b:
                 assert a.read() == b.read(), rel
-
-
-def test_config_switches(monkeypatch):
-    from arap_flow_tpu.utils.config import FrameworkConfig as JFramework
-
-    cfg = FrameworkConfig.from_env()
-    j = JFramework()
-    assert (cfg.async_io, cfg.io_threads) == (j.async_io, j.io_threads)
-    monkeypatch.setenv("ARAP_ASYNC_IO", "0")
-    assert FrameworkConfig.from_env().async_io is False
-    monkeypatch.setenv("ARAP_ASYNC_IO", "yes")  # not 0/1: ignored
-    assert FrameworkConfig.from_env().async_io is True
 
 
 def test_cpu_fetch_is_plain():

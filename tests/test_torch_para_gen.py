@@ -505,3 +505,19 @@ def test_binary_matcher_pipeline_matches_jax(tmp_path):
         TP.main_pipeline(TP.PipelineFlags(output=str(tmp_path / "x"),
                                           device="cpu",
                                           **{**kw, "dm_bin": "/nonexistent"}))
+
+
+def test_config_switches(monkeypatch):
+    """The writer's switches: the port's defaults are JAX's;
+    ARAP_ASYNC_IO=0 turns the asynchronous writer off, any other value is
+    ignored."""
+    from arap_flow_tpu.utils.config import FrameworkConfig as JFramework
+    from arap_flow_tpu_torch.utils.config import FrameworkConfig
+
+    cfg = FrameworkConfig.from_env()
+    j = JFramework()
+    assert (cfg.async_io, cfg.io_threads) == (j.async_io, j.io_threads)
+    monkeypatch.setenv("ARAP_ASYNC_IO", "0")
+    assert FrameworkConfig.from_env().async_io is False
+    monkeypatch.setenv("ARAP_ASYNC_IO", "yes")  # not 0/1: ignored
+    assert FrameworkConfig.from_env().async_io is True

@@ -149,51 +149,3 @@ def test_wrapper_refuses_other_devices():
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="no kernel"):
         TP.pcg_fixed(*meta, 3)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with CUDA")
-    return torch.device("cuda", 0)
-
-
-# (B, H, W) on the card: the resident plan (16×128: one row a CTA, every
-# plane in shared memory), the spread plan (480×854, the full frame: one
-# problem over the whole card), the streamed plan (576×1024: a band's state
-# does not fit a block's shared memory) and the pipeline's largest chunk
-# (B = 24 64×128, one wave of 4-CTA clusters)
-CARD_SHAPES = ((1, 16, 128), (1, 480, 854), (1, 576, 1024), (24, 64, 128))
-CARD_KINDS = {(480, 854): "spread", (576, 1024): "streamed"}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("tall", [False, True], ids=["standard", "tall"])
-@pytest.mark.parametrize("B,H,W", CARD_SHAPES,
-                         ids=[f"B{b}-{h}x{w}" for b, h, w in CARD_SHAPES])
-def test_kernel_matches_plain_on_card(cuda_device, B, H, W, tall):
-    """On the card: the CUDA kernel against its plain version (1 iteration
-    to 1e-4; every problem converged at 160 iterations; bitwise
-    repeatable), in the three plans and both layouts, one launch a call;
-    the card holds the whole batch at once."""
-    plan = TP.card_plan(B, H, W, tall, cuda_device)
-    assert plan.kind == CARD_KINDS.get((H, W), "resident")
-    assert TP.active_clusters(plan, B, W, tall, cuda_device) >= B
-    probs = [_problem(H, W, seed=8 + k) for k in range(B)]
-    ports = [_port_args(*p)[1] for p in probs]
-    args = [torch.cat([a[k] for a in ports]).to(cuda_device)
-            for k in range(6)]
-    args += [torch.stack([torch.as_tensor(a[k]).reshape(()) for a in ports])
-             .to(cuda_device) for k in (6, 7)]
-    key = "pcg_fixed_tall" if tall else "pcg_fixed"
-    n0 = TP.LAUNCHES[key]
-    torch.testing.assert_close(TP.pcg_fixed(*args, 1, tall=tall),
-                               TP.pcg_fixed_plain(*args, 1),
-                               rtol=1e-4, atol=1e-4)
-    k = TP.pcg_fixed(*args, CONVERGED_ITERS, tall=tall)
-    assert torch.equal(k, TP.pcg_fixed(*args, CONVERGED_ITERS, tall=tall))
-    plain = TP.pcg_fixed_plain(*args, CONVERGED_ITERS)
-    for i, (ops, s, c, jtf, _) in enumerate(probs):
-        _assert_converged(k[i].cpu().numpy(), plain[i].cpu().numpy(), ops, s,
-                          c, jtf)
-    assert TP.LAUNCHES[key] == n0 + 3

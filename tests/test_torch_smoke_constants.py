@@ -1,16 +1,16 @@
-"""chip_smoke.py's constants recorded from the JAX package, which the
-card's machine does not have: phase 8a's draws and 64x96 render checksums
-(``TEX_JAX_DRAWS``, ``TEX_JAX_SUMS``), phase 11d's texture_gen family and
-checksums (``TEXGEN_JAX_FIRST``) and phase 8b's per-object flow
-errors of the JAX package's own dmo_gen run on 8b's tree
-(``DMO_JAX_ERRS``), with 8b's flow gate built on them.
+"""The card tests' constants recorded from the JAX package, which the
+card's machine does not have (tests/torch_card.py): the texture families'
+draws and 64x96 render checksums (``TEX_JAX_DRAWS``, ``TEX_JAX_SUMS``),
+texture_gen's first family and checksums (``TEXGEN_JAX_FIRST``) and the
+per-object flow errors of the JAX package's own dmo_gen run on the mask
+tree (``DMO_JAX_ERRS``), with the DMO flow gate built on them.
 
-The tests hold 8a's constants to JAX's draws and renders, 8b's untracked
-object to the near-uniform texture JAX draws for it, and 8b's gate to the
-card's readings and to wrong flows. ``DMO_JAX_ERRS`` itself comes from a
-JAX dmo_gen run at 19x8x400 on the CPU (about 18 minutes), too long for a
-test: run as a script, this file prints every constant, and ``--dmo`` adds
-8b's:
+The tests hold the texture constants to JAX's draws and renders, the
+untracked object to the near-uniform texture JAX draws for it, and the
+gate to the card's readings and to wrong flows. ``DMO_JAX_ERRS`` itself
+comes from a JAX dmo_gen run at 19x8x400 on the CPU (about 18 minutes),
+too long for a test: run as a script, this file prints every constant, and
+``--dmo`` adds the DMO errors:
 
     JAX_PLATFORMS=cpu python tests/test_torch_smoke_constants.py [--dmo]
 """
@@ -24,9 +24,8 @@ import jax
 import numpy as np
 import pytest
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
-import chip_smoke as C  # noqa: E402
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_card as C  # noqa: E402
 from arap_flow_tpu.ops import textures as JT  # noqa: E402
 from test_torch_textures import jax_render_params  # noqa: E402
 
@@ -62,7 +61,8 @@ def test_phase_11d_constant_is_jax():
 
 
 def _jax_dmo_texture(obj: int) -> np.ndarray:
-    """The texture the JAX package's dmo_gen draws for 8b's object ``obj``
+    """The texture the JAX package's dmo_gen draws for the mask tree's
+    object ``obj``
     (0 the background) at seed 0, and its family."""
     from arap_flow_tpu.pipeline import dmo_gen
 
@@ -85,8 +85,8 @@ def test_phase_8b_untracked_object_is_jax_near_uniform_texture(obj):
     assert near_uniform == (obj in C.DMO_UNTRACKED), patch.std(axis=0)
 
 
-# 8b's readings on the card (NVIDIA H100 80GB HBM3, 700 W, the smoke's
-# final run on this tree): median |flow - fd*t| by (fd, pair, object)
+# dmo_gen's readings on the card (NVIDIA H100 80GB HBM3, 700 W) on the
+# mask tree: median |flow - fd*t| by (fd, pair, object)
 CARD_DMO_ERRS = {
     (1, 0, 1): 5.8624, (1, 0, 2): 0.8785, (1, 1, 1): 4.2926,
     (1, 1, 2): 0.5549, (1, 2, 1): 5.5131, (1, 2, 2): 1.1347,
@@ -98,7 +98,7 @@ CARD_DMO_ERRS = {
 
 @pytest.mark.parametrize("fd,t,obj", sorted(C.DMO_JAX_ERRS))
 def test_phase_8b_flow_gate(fd, t, obj):
-    """8b's gate passes the card's reading at every object-pair and fails a
+    """The gate passes the card's reading at every object-pair and fails a
     flow that moves the object the wrong way, by the other object's
     motion, or not at all where JAX tracks it, and an error that is not
     finite."""
@@ -119,7 +119,7 @@ def test_phase_8b_flow_gate(fd, t, obj):
 
 def jax_dmo_errs() -> dict:
     """Each object's median |flow - fd*(dx, dy)| of the JAX package's
-    dmo_gen on phase 8b's tree (set 0, seed 0, batched multseg,
+    dmo_gen on the mask tree (set 0, seed 0, batched multseg,
     19x8x400)."""
     from arap_flow_tpu.io.flo import flow_read
     from arap_flow_tpu.io.image import load_mask

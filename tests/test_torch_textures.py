@@ -391,23 +391,3 @@ def test_draws_within_jax_ranges():
                 assert 0 <= p["salt"] < 10000
             if fam == "brick":
                 assert 1.5 * p["bh"] <= p["bw"] < 3.5 * p["bh"] + 1e-3
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with CUDA")
-    return torch.device("cuda", 0)
-
-
-@pytest.mark.cuda
-def test_card_renders_the_cpu_texture(cuda_device):
-    """One seed gives the same texture on the card as on the CPU."""
-    for fam in TT.FAMILIES:
-        p = TT.draw_render_params(fam, 120, 200, _key(21))
-        f_cpu = TT.field(fam, p["field"], 120, 200, "cpu")
-        f_gpu = TT.field(fam, p["field"], 120, 200, cuda_device).cpu()
-        assert (f_cpu - f_gpu).abs().max() <= 1e-4
-        assert_uint8_close(
-            TT.render_params(fam, p, 120, 200, cuda_device).cpu().numpy(),
-            TT.render_params(fam, p, 120, 200, "cpu").numpy())
