@@ -8,9 +8,9 @@ libraries are compiled together, one nvcc process per source; the shared
 headers (``csrc/*.cuh``) are part of every library's key. The CUDA build
 runs only on a machine with the CUDA toolkit. The host library
 (``native/src/arap_native.cpp``: the exact splat, the .flo codec, the
-asynchronous writer and the JPEG codec) is built the same way with g++,
-on any machine. A failed build or load raises; nothing here runs at import
-time.
+asynchronous writer, the JPEG codec and the LANCZOS resample) is built
+the same way with g++, on any machine. A failed build or load raises;
+nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -98,7 +98,10 @@ def build() -> tuple[list[str], float]:
 
 
 NATIVE_SRC = osp.join(_HERE, "native", "src", "arap_native.cpp")
-GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+# no fused multiply-adds: the LANCZOS coefficients round each double
+# operation as Pillow's (and Python's) arithmetic does
+GXX_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+             "-pthread")
 
 
 def native_lib_path() -> str:
@@ -166,6 +169,8 @@ def load_native() -> ctypes.CDLL:
     lib.jpeg_encode.restype = lg
     lib.jpeg_take.argtypes = [vp]
     lib.jpeg_take.restype = None
+    lib.resize_lanczos_window.argtypes = [vp] + [i] * 9 + [vp]
+    lib.resize_lanczos_window.restype = i
     return lib
 
 

@@ -15,6 +15,9 @@ The library (``src/arap_native.cpp``) is built with g++ on first use by
   one plain ValueError, one of a variant it does not implement (arithmetic
   coding, 12-bit samples, lossless, ...) ``JpegUnsupported``, a subclass,
   which ``io.image`` hands to PIL.
+
+Its LANCZOS resample (``resize_lanczos_window``) is called from
+``io.resize``, which holds its Python surface.
 """
 
 from __future__ import annotations

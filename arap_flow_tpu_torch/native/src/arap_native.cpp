@@ -2,7 +2,8 @@
 // rasterizer, the Middlebury .flo codec, an asynchronous file-writer pool
 // (all three from the JAX package's native/src/arap_native.cpp; the
 // rasterizer's bbox is cut to the frame before its int cast, and a writer
-// counts a failed fclose), and a baseline JPEG decoder and encoder.
+// counts a failed fclose), a baseline JPEG decoder and encoder, and
+// Pillow's LANCZOS resample of an output window (at the end of the file).
 //
 // Semantics of the first three, replicated from the reference CPU code:
 // - triangle coverage + barycentric weights: the LK edge-function test of
@@ -41,7 +42,8 @@
 // quality-scaled Annex K quantization tables and the Annex K Huffman tables.
 //
 // Exposed as a plain C ABI for ctypes.
-// Build: g++ -O3 -std=c++17 -shared -fPIC -pthread arap_native.cpp -o lib.so
+// Build: g++ -O3 -std=c++17 -ffp-contract=off -shared -fPIC -pthread
+//        arap_native.cpp -o lib.so
 
 #include <algorithm>
 #include <atomic>
@@ -1673,6 +1675,200 @@ long jpeg_encode(const uint8_t* px, int H, int W, int C, int quality) {
 void jpeg_take(uint8_t* out) {
   std::memcpy(out, jpg::t_encoded.data(), jpg::t_encoded.size());
   jpg::t_encoded.clear();
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// LANCZOS resample: Pillow's ImagingResample (Resample.c) of a uint8 (H, W,
+// C) image, C = 1-4, computing only an output window of the full resize.
+// Each output's coefficients come from its absolute index in the full
+// output (center = (xx + 0.5) * scale, support 3 scaled by the downscale
+// factor, normalised in double, then fixed point with PRECISION_BITS 22,
+// rounded half away from zero): the window is bitwise the crop of the full
+// resize. A horizontal pass over the input rows the window's outputs read,
+// then a vertical pass, each accumulated in int32 from 2^21 and clipped to
+// uint8; a pass is skipped along an axis whose size does not change.
+namespace rs {
+
+constexpr int kBits = 22;  // PRECISION_BITS: 32 - 8 - 2
+constexpr int kRows = 16;  // rows of one block of the horizontal pass
+
+double sinc(double x) {
+  if (x == 0.0) return 1.0;
+  x = x * M_PI;
+  return std::sin(x) / x;
+}
+
+double lanczos(double x) {
+  if (-3.0 <= x && x < 3.0) return sinc(x) * sinc(x / 3);
+  return 0.0;
+}
+
+// Pillow's precompute_coeffs and normalize_coeffs_8bpc for the outputs
+// [o0, o0 + n) of one axis resized from in_size to out_size: each output's
+// first tap and tap count, and its ksize fixed-point coefficients (zero
+// past its count).
+struct Taps {
+  int ksize;
+  std::vector<int> first, count;
+  std::vector<int32_t> k;  // (n, ksize)
+};
+
+Taps taps(int in_size, int out_size, int o0, int n) {
+  const double scale = (double)in_size / out_size;
+  const double filterscale = std::max(scale, 1.0);
+  const double support = 3.0 * filterscale;
+  const double ss = 1.0 / filterscale;
+  Taps t;
+  t.ksize = (int)std::ceil(support) * 2 + 1;
+  t.first.resize(n);
+  t.count.resize(n);
+  t.k.assign((size_t)n * t.ksize, 0);
+  std::vector<double> w(t.ksize);
+  for (int i = 0; i < n; ++i) {
+    const double center = (o0 + i + 0.5) * scale;
+    const int xmin = std::max((int)(center - support + 0.5), 0);
+    const int cnt = std::min(std::min((int)(center + support + 0.5), in_size)
+                             - xmin, t.ksize);
+    double ww = 0.0;
+    for (int x = 0; x < cnt; ++x) {
+      w[x] = lanczos((x + xmin - center + 0.5) * ss);
+      ww += w[x];
+    }
+    int32_t* k = &t.k[(size_t)i * t.ksize];
+    for (int x = 0; x < cnt; ++x) {
+      const double v = ww != 0.0 ? w[x] / ww : w[x];
+      const double s = v * (1 << kBits);
+      k[x] = (int32_t)(v < 0 ? -0.5 + s : 0.5 + s);
+    }
+    t.first[i] = xmin;
+    t.count[i] = cnt;
+  }
+  return t;
+}
+
+inline uint8_t clip8(int32_t acc) {
+  const int32_t v = acc >> kBits;
+  return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
+}
+
+// The two passes are integer arithmetic alone, so their AVX2 clones (picked
+// at load time where the CPU has AVX2) give the same bytes as the default.
+#define RS_CLONES __attribute__((target_clones("avx2", "default")))
+
+// The horizontal pass of `nrows` rows of src (row stride `stride` bytes)
+// into out ((nrows, n, C), n = t's outputs). Rows go kRows at a time
+// through a transposed block, col[x][r][c], so that each output sums whole
+// blocks of kRows * C contiguous samples.
+template <int C>
+RS_CLONES void horizontal(const uint8_t* src, long stride, int nrows,
+                          const Taps& t, uint8_t* out) {
+  constexpr int L = kRows * C;
+  const int n = (int)t.first.size();
+  const int xlo = t.first[0];
+  int xhi = xlo;
+  for (int j = 0; j < n; ++j) xhi = std::max(xhi, t.first[j] + t.count[j]);
+  std::vector<uint8_t> col((size_t)(xhi - xlo) * L, 0);
+  for (int rb = 0; rb < nrows; rb += kRows) {
+    const int nr = std::min(kRows, nrows - rb);
+    for (int r = 0; r < nr; ++r) {
+      const uint8_t* s = src + (rb + r) * stride + (long)xlo * C;
+      uint8_t* d = &col[r * C];
+      for (int x = 0; x < xhi - xlo; ++x)
+        for (int c = 0; c < C; ++c) d[(size_t)x * L + c] = s[x * C + c];
+    }
+    for (int j = 0; j < n; ++j) {
+      const int32_t* k = &t.k[(size_t)j * t.ksize];
+      const uint8_t* s = &col[(size_t)(t.first[j] - xlo) * L];
+      int32_t acc[L];
+      for (int l = 0; l < L; ++l) acc[l] = 1 << (kBits - 1);
+      for (int tap = 0; tap < t.count[j]; ++tap, s += L) {
+        const int32_t kv = k[tap];
+        for (int l = 0; l < L; ++l) acc[l] += s[l] * kv;
+      }
+      for (int r = 0; r < nr; ++r)
+        for (int c = 0; c < C; ++c)
+          out[((size_t)(rb + r) * n + j) * C + c] = clip8(acc[r * C + c]);
+    }
+  }
+}
+
+// The vertical pass: out row i sums t's taps of the rows of src (row
+// stride `stride` bytes, row 0 the input row r0), each row `len` samples.
+RS_CLONES void vertical(const uint8_t* src, long stride, int r0, int len,
+                        const Taps& t, uint8_t* out) {
+  std::vector<int32_t> acc(len);
+  for (int i = 0; i < (int)t.first.size(); ++i) {
+    const int32_t* k = &t.k[(size_t)i * t.ksize];
+    std::fill(acc.begin(), acc.end(), 1 << (kBits - 1));
+    const uint8_t* s = src + (long)(t.first[i] - r0) * stride;
+    for (int tap = 0; tap < t.count[i]; ++tap, s += stride) {
+      const int32_t kv = k[tap];
+      for (int l = 0; l < len; ++l) acc[l] += s[l] * kv;
+    }
+    uint8_t* o = out + (size_t)i * len;
+    for (int l = 0; l < len; ++l) o[l] = clip8(acc[l]);
+  }
+}
+
+template <int C>
+void resample(const uint8_t* in, int H, int W, int w, int h, int y0, int x0,
+              int oh, int ow, uint8_t* out) {
+  const long in_stride = (long)W * C;
+  const int len = ow * C;
+  if (H == h) {  // one pass, or none
+    const uint8_t* src = in + y0 * in_stride;
+    if (W == w) {
+      for (int i = 0; i < oh; ++i)
+        std::memcpy(out + (size_t)i * len, src + i * in_stride + x0 * C, len);
+    } else {
+      horizontal<C>(src, in_stride, oh, taps(W, w, x0, ow), out);
+    }
+    return;
+  }
+  const Taps tv = taps(H, h, y0, oh);
+  int r0 = H, r1 = 0;  // the input rows the window's outputs read
+  for (int i = 0; i < oh; ++i) {
+    r0 = std::min(r0, tv.first[i]);
+    r1 = std::max(r1, tv.first[i] + tv.count[i]);
+  }
+  if (W == w) {
+    vertical(in + r0 * in_stride + x0 * C, in_stride, r0, len, tv, out);
+    return;
+  }
+  std::vector<uint8_t> mid((size_t)(r1 - r0) * len);
+  horizontal<C>(in + r0 * in_stride, in_stride, r1 - r0, taps(W, w, x0, ow),
+                mid.data());
+  vertical(mid.data(), len, r0, len, tv, out);
+}
+
+}  // namespace rs
+
+extern "C" {
+
+// Rows [y0, y0 + oh) and columns [x0, x0 + ow) of Pillow's LANCZOS resize
+// of the uint8 (H, W, C) image `in` to (h, w), written to out, (oh, ow, C).
+// Returns 0, -1 when C is not 1-4 or the window is not inside (h, w), or
+// -2 out of memory.
+int resize_lanczos_window(const uint8_t* in, int H, int W, int C, int w,
+                          int h, int y0, int x0, int oh, int ow,
+                          uint8_t* out) {
+  if (H <= 0 || W <= 0 || w <= 0 || h <= 0 || oh <= 0 || ow <= 0 ||
+      y0 < 0 || x0 < 0 || y0 + oh > h || x0 + ow > w)
+    return -1;
+  try {
+    switch (C) {
+      case 1: rs::resample<1>(in, H, W, w, h, y0, x0, oh, ow, out); break;
+      case 2: rs::resample<2>(in, H, W, w, h, y0, x0, oh, ow, out); break;
+      case 3: rs::resample<3>(in, H, W, w, h, y0, x0, oh, ow, out); break;
+      case 4: rs::resample<4>(in, H, W, w, h, y0, x0, oh, ow, out); break;
+      default: return -1;
+    }
+  } catch (const std::bad_alloc&) {
+    return -2;
+  }
+  return 0;
 }
 
 }  // extern "C"

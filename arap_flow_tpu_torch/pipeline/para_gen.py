@@ -14,8 +14,8 @@ products and writes Flow/.flo, the warped RGB/mask trees and
 Input layout: ROOT/orgRGB/SEQ/<n>.{jpg,png} frames and ROOT/orgMasks/SEQ/
 <n>.png annotation masks (0 = background, nonzero = segment id). None of it
 needs PIL: PNG and baseline JPEG go through the port's codecs
-(``io.image``), and --size and --bg_dir resize with PIL-exact numpy
-resamplers (``io.resize``).
+(``io.image``), and --size and --bg_dir resize with PIL-exact resamplers
+(``io.resize``: the LANCZOS in the native host library).
 
 Modes: ``simple`` solves pair by pair, with the next pair's host and
 matcher prep on a worker thread; ``batched`` decodes a chunk of 2·--narap
@@ -63,7 +63,8 @@ from ..io import flo
 from ..io.constraints import filter_matches, read_matches, write_constraint_file
 from ..io.image import (load_mask, load_rgb, mask_to_arap, png_encode,
                         save_image, segment_mask_to_arap)
-from ..io.resize import resize_lanczos, resize_nearest
+from ..io.resize import (resize_lanczos, resize_lanczos_window,
+                         resize_nearest)
 from ..models.arap import CROP_BUCKETS, ArapDeformer
 from ..ops.solver import SolverConfig
 from ..utils.config import FrameworkConfig, cli_device
@@ -181,9 +182,15 @@ class BackgroundPool:
     until the pool refills; files that fail to decode are dropped
     (para_gen.py:365-375, 484-497). Draws use the numpy Generator `rng` in
     the JAX package's order, so a seed gives the same backgrounds. Fitting
-    a background resizes it with the PIL-exact LANCZOS. A draw from a
-    pool that has files (decode, upscale and crop) is the stage
-    ``background draw``."""
+    a background upscales it 1-2× with the PIL-exact LANCZOS and keeps a
+    random crop of the frame's size; the crop's offsets depend only on the
+    upscaled size, so they are drawn first and the native resample
+    computes that window alone (``io.resize.resize_lanczos_window``, about
+    a tenth of the upscale at 1080p), with each output's coefficients
+    taken from its index in the whole upscale: bitwise the crop of the
+    whole, which PIL's ``resize(box=)`` is not. A draw from a pool that
+    has files (decode, upscale and crop) is the stage ``background
+    draw``."""
 
     def __init__(self, bg_dir, rng: np.random.Generator):
         self.rng = rng
@@ -204,10 +211,10 @@ class BackgroundPool:
         r = self.rng.uniform(1, 2) * max(
             float(max(bgh, imh)) / bgh, float(max(bgw, imw)) / bgw
         )
-        bg = resize_lanczos(bg, (int(bgw * r), int(bgh * r)))
-        sy = self.rng.integers(0, bg.shape[0] - imh + 1)
-        sx = self.rng.integers(0, bg.shape[1] - imw + 1)
-        return bg[sy : sy + imh, sx : sx + imw, :3]
+        w, h = int(bgw * r), int(bgh * r)
+        sy = self.rng.integers(0, h - imh + 1)
+        sx = self.rng.integers(0, w - imw + 1)
+        return resize_lanczos_window(bg, (w, h), sy, sx, imh, imw)[..., :3]
 
     def draw(self, shape) -> np.ndarray | None:
         with (TIMER.stage("background draw") if self.paths

@@ -1,15 +1,20 @@
 """``para_gen --size W H --bg_dir DIR --seed S`` on full-resolution JPEG
 frames against the benchmark's plain reference (``benchmark/reference/
 fullres.py``), on seeded inputs at small sizes: the port's PIL-exact
-resizes, its JPEG decode at a height of 8 mod 16 and an odd width, its
-background pool's draws, a pair's input frame and background-composited
-warped frame on a fixed warp, and the stages ``preprocess resize`` and
-``background draw`` of a batched run.
+resizes, the native LANCZOS's output windows against the crop of the
+whole resize (and of PIL's, where PIL imports), the background fit's
+bytes and random stream against an upscale of the whole background, the
+``io.resize.RESAMPLED`` share, its JPEG decode at a height of 8 mod 16
+and an odd width, its background pool's draws, a pair's input frame and
+background-composited warped frame on a fixed warp, and the stages
+``preprocess resize`` and ``background draw`` of a batched run.
 """
 
 import json
 import os
 import os.path as osp
+import sys
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -17,7 +22,10 @@ import pytest
 import torch
 
 from arap_flow_tpu_torch.io.image import load_rgb
-from arap_flow_tpu_torch.io.resize import resize_lanczos, resize_nearest
+from arap_flow_tpu_torch.io import resize as RS
+from arap_flow_tpu_torch.io.resize import (resize_lanczos,
+                                           resize_lanczos_window,
+                                           resize_nearest)
 from arap_flow_tpu_torch.ops.rasterize import rasterize
 from arap_flow_tpu_torch.pipeline import para_gen as TP
 from arap_flow_tpu_torch.utils import profiling as P
@@ -41,6 +49,140 @@ def test_resizes_are_the_references_bitwise(hw, size):
     mk = rng.integers(0, 5, hw).astype(np.uint8)
     np.testing.assert_array_equal(resize_nearest(mk, size),
                                   R.resize_nearest(mk, size))
+
+
+# (H, W) -> (w, h): upscales at r near 1 (one axis unchanged), 1.5 and 2,
+# and davis1080's frame downscale at 1/8 of its size
+WINDOW_RESIZES = [((60, 100), (101, 60)), ((60, 100), (150, 90)),
+                  ((61, 99), (197, 121)), ((1080 // 8, 1920 // 8), (109, 61))]
+
+
+def _window(kind, h, w):
+    """(top, left, height, width) of a window of an (h, w) resize."""
+    return {"top": (0, w // 3, h // 4, w // 3),
+            "bottom": (h - h // 4, w // 5, h // 4, w // 2),
+            "left": (h // 3, 0, h // 3, w // 4),
+            "right": (h // 5, w - w // 4, h // 2, w // 4),
+            "pixel": (h // 2, w // 2, 1, 1),
+            "whole": (0, 0, h, w)}[kind]
+
+
+@pytest.mark.parametrize("kind", ["top", "bottom", "left", "right", "pixel",
+                                  "whole"])
+@pytest.mark.parametrize("hw,size", WINDOW_RESIZES)
+def test_window_is_the_crop_of_the_whole_resize(hw, size, kind):
+    rng = np.random.default_rng(hw[0] * 1000 + size[0])
+    t, l, hh, ww = _window(kind, size[1], size[0])
+    for im in (rng.integers(0, 256, (*hw, 3)).astype(np.uint8),
+               rng.integers(0, 256, (*hw, 4)).astype(np.uint8),
+               rng.integers(0, 256, hw).astype(np.uint8)):
+        got = resize_lanczos_window(im, size, t, l, hh, ww)
+        assert got.shape == (hh, ww, *im.shape[2:])
+        np.testing.assert_array_equal(
+            got, resize_lanczos(im, size)[t:t + hh, l:l + ww])
+
+
+@pytest.mark.parametrize("kind", ["top", "bottom", "left", "right", "pixel"])
+@pytest.mark.parametrize("hw,size", WINDOW_RESIZES)
+def test_window_is_the_crop_of_pils_resize(hw, size, kind):
+    Image = pytest.importorskip("PIL.Image")
+    rng = np.random.default_rng(hw[1] * 1000 + size[1])
+    t, l, hh, ww = _window(kind, size[1], size[0])
+    rgb = rng.integers(0, 256, (*hw, 3)).astype(np.uint8)
+    cmyk = rng.integers(0, 256, (*hw, 4)).astype(np.uint8)  # no alpha
+    for im, pil in ((rgb, Image.fromarray(rgb)),
+                    (cmyk, Image.frombytes("CMYK", hw[::-1], cmyk.tobytes())),
+                    (rgb[..., 1], Image.fromarray(rgb[..., 1]))):
+        want = np.asarray(pil.resize(size, Image.LANCZOS))
+        np.testing.assert_array_equal(
+            resize_lanczos_window(im, size, t, l, hh, ww),
+            want[t:t + hh, l:l + ww])
+
+
+@pytest.mark.parametrize("window", [(-1, 0, 2, 2), (0, -1, 2, 2),
+                                    (0, 0, 0, 2), (0, 0, 2, 0),
+                                    (59, 0, 2, 2), (0, 100, 1, 2)])
+def test_a_window_outside_the_resize_raises(window):
+    im = np.zeros((30, 50, 3), np.uint8)
+    with pytest.raises(ValueError):
+        resize_lanczos_window(im, (101, 60), *window)
+
+
+def _fit_whole(rng, bg, shape):
+    """The background fit as an upscale of the whole background, then the
+    crop: the same draws in the same order."""
+    imh, imw = shape[:2]
+    bgh, bgw = bg.shape[:2]
+    r = rng.uniform(1, 2) * max(float(max(bgh, imh)) / bgh,
+                                float(max(bgw, imw)) / bgw)
+    up = resize_lanczos(bg, (int(bgw * r), int(bgh * r)))
+    sy = rng.integers(0, up.shape[0] - imh + 1)
+    sx = rng.integers(0, up.shape[1] - imw + 1)
+    return up[sy:sy + imh, sx:sx + imw, :3]
+
+
+@pytest.mark.parametrize("seed", [7, 2024, 3000000001, 2**31 + 5])
+def test_fit_is_the_crop_of_the_whole_upscale(seed):
+    src = np.random.default_rng(seed)
+    pool = TP.BackgroundPool(None, np.random.default_rng(seed))
+    rng = np.random.default_rng(seed)
+    for bg_hw, frame_hw in (((90, 160), (40, 70)), ((50, 44), (48, 60)),
+                            ((135, 240), (60, 107))):
+        bg = src.integers(0, 256, (*bg_hw, 3)).astype(np.uint8)
+        np.testing.assert_array_equal(pool.fit(bg, (*frame_hw, 3)),
+                                      _fit_whole(rng, bg, (*frame_hw, 3)))
+    # the stream goes on where the whole upscale's leaves it
+    assert pool.rng.integers(0, 2**62) == rng.integers(0, 2**62)
+
+
+def _share(before):
+    c = RS.RESAMPLED
+    return ((c["computed"] - before.get("computed", 0))
+            / (c["full"] - before.get("full", 0)))
+
+
+@pytest.mark.parametrize("stage", ["background", "frame"])
+def test_resampled_reads_the_share_of_the_full_work(stage, tmp_path):
+    before = dict(RS.RESAMPLED)
+    if stage == "background":
+        _write_backgrounds(str(tmp_path), [(90, 160)])
+        pool = TP.BackgroundPool(str(tmp_path), np.random.default_rng(3))
+        assert pool.draw((40, 70, 3)).shape == (40, 70, 3)
+        assert 0 < _share(before) < 0.2
+    else:
+        TP.scale_rotate(*_scene(0), SIZE)
+        assert _share(before) == 1.0
+
+
+def test_resampled_loses_no_count_across_threads():
+    """More threads than cores resizing at once, switching every
+    microsecond: every window is still the whole resize's crop, and the
+    counter holds every pixel."""
+    im = np.random.default_rng(8).integers(0, 256, (30, 50, 3)).astype(
+        np.uint8)
+    whole = resize_lanczos(im, (71, 43))
+    n_threads, calls = 4 * (os.cpu_count() or 1), 40
+    before = dict(RS.RESAMPLED)
+
+    def work(k):
+        for c in range(calls):
+            t, l = (k + c) % 40, (3 * k + c) % 60
+            got = resize_lanczos_window(im, (71, 43), t, l, 3, 11)
+            if not np.array_equal(got, whole[t:t + 3, l:l + 11]):
+                return False
+        return True
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(n_threads) as ex:
+            futures = [ex.submit(work, k) for k in range(n_threads)]
+            assert all(f.result(timeout=120) for f in futures)
+    finally:
+        sys.setswitchinterval(interval)
+    n = n_threads * calls
+    assert RS.RESAMPLED["computed"] - before.get("computed", 0) == n * 33
+    assert RS.RESAMPLED["full"] - before.get("full", 0) == n * 71 * 43
 
 
 @pytest.mark.parametrize("hw", [(24, 37), (40, 63), (56, 17), (72, 101)])
